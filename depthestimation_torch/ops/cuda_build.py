@@ -1,0 +1,92 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+`nvcc` compiles the sources for sm_90a into one shared library with a
+plain C interface, which is loaded with ctypes. The build runs at first
+use, into ``build/`` at the repository root, keyed on a hash of the
+sources and flags, so a fresh checkout builds everything on its first
+kernel call and later processes reuse the library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ["load_library", "build_log"]
+
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures (csrc/sgm_kernels.cu); every function returns cudaError_t.
+_SIGNATURES = {
+    "sgm_cost_volume": [_P] * 7 + [_I] * 5 + [_P],
+    "sgm_hscan": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sgm_rowsweep": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P],
+}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _lib_path() -> Path:
+    sources = sorted(_CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return _BUILD_DIR / h.hexdigest()[:16] / "libsgm_kernels.so"
+
+
+def build_log() -> str:
+    """nvcc's output (ptxas register and shared-memory report) of the
+    library that load_library() loads; empty before the first build."""
+    log = _lib_path().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library once per process."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    path = _lib_path()
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        # Build under a temporary name and rename, so concurrent processes
+        # never load a half-written library.
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
+        os.close(fd)
+        cmd = [_nvcc(), *_FLAGS, "-o", tmp, *map(str, sorted(_CSRC.glob("*.cu")))]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+            )
+        path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
