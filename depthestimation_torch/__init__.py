@@ -5,8 +5,10 @@ an NVIDIA H100: plain tensor code is PyTorch, and the TPU's Pallas
 kernels are CUDA C++ kernels written for Hopper (csrc/). The JAX package
 stays the reference; this package imports nothing of it nor of JAX.
 
-This slice covers the default stereo path (grayscale, sgbm_3way matcher
-with the BT cost, post-filters, depth) behind StereoDepthEstimator.
+It covers the single-pair stereo path behind StereoDepthEstimator:
+grayscale, full-calibration rectification, the SGM matcher in all four
+modes (sgbm_3way, hh4, sgbm, hh) with the BT or census cost, post-filters
+and depth.
 """
 
 from .api import StereoDepthEstimator  # noqa: F401

@@ -6,10 +6,11 @@ Counterpart of depthestimation_tpu/ops/costs.py (OpenCV's calcPixelCostBT
 - x-Sobel prefilter clipped to +-prefilter_cap;
 - Birchfield-Tomasi sampling-insensitive pixel cost with half-pixel
   min/max envelopes on both images;
-- block_size x block_size SAD window with edge-replicated borders.
+- block_size x block_size SAD window with edge-replicated borders;
+- or the census cost: Hamming distance of packed radius-2 census words,
+  summed over the same window.
 
 This is the plain version of the cost kernel (ops/cuda_sgm.cost_volume).
-The census cost comes with a later slice.
 
 Layout: the cost volume is (H, W, D) with D innermost.
 """
@@ -19,7 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["xsobel_prefilter", "half_sample_envelope", "bt_cost_volume"]
+__all__ = ["xsobel_prefilter", "half_sample_envelope", "bt_cost_volume",
+           "census_transform", "census_cost_volume", "cost_volume"]
 
 
 def _pad_edge(img: torch.Tensor, top: int, bottom: int, left: int, right: int):
@@ -127,3 +129,62 @@ def bt_cost_volume(
     pixel_cost = torch.minimum(c0, c1)
 
     return _block_sum(pixel_cost, block_size)
+
+
+def census_transform(img: torch.Tensor, radius: int = 2) -> torch.Tensor:
+    """Census transform over a (2r+1)^2 window with edge padding, packed
+    into int32 words: bit k is set where the k-th neighbour (row-major,
+    centre skipped) is below the centre. r=2 gives 24 bits."""
+    img = img.to(torch.float32)
+    p = _pad_edge(img, radius, radius, radius, radius)
+    h, w = img.shape
+    bits = torch.zeros((h, w), dtype=torch.int32, device=img.device)
+    bit = 0
+    for dy in range(-radius, radius + 1):
+        for dx in range(-radius, radius + 1):
+            if dy == 0 and dx == 0:
+                continue
+            neighbor = p[radius + dy:radius + dy + h, radius + dx:radius + dx + w]
+            bits |= (neighbor < img).to(torch.int32) << bit
+            bit += 1
+    return bits
+
+
+def _popcount(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of non-negative int32 words below 2**31 (shift/add only)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    x = x + (x >> 8)
+    return (x + (x >> 16)) & 0x3F
+
+
+def census_cost_volume(
+    left: torch.Tensor,
+    right: torch.Tensor,
+    num_disp: int,
+    min_disp: int = 0,
+    block_size: int = 1,
+    radius: int = 2,
+) -> torch.Tensor:
+    """Census + Hamming-distance cost volume (H, W, D) float32, summed
+    over a block_size^2 window with edge-replicated borders."""
+    cl = census_transform(left, radius)
+    cr = census_transform(right, radius)
+    cr_shift = _shift_right_stack(cr, min_disp, num_disp)
+    ham = _popcount(cl[:, :, None] ^ cr_shift).to(torch.float32)
+    return _block_sum(ham, block_size)
+
+
+def cost_volume(left: torch.Tensor, right: torch.Tensor, cfg) -> torch.Tensor:
+    """Dispatch on cfg.cost ('bt' | 'census').
+
+    Census sums a cfg.block_size^2 window, as the JAX package's Pallas K1
+    does (pallas_sgm.py:105-106, 293-297) and as it computes on its
+    accelerator. The JAX package's XLA route (costs.cost_volume there)
+    passes block_size=1 instead; the port follows the kernel."""
+    if cfg.cost == "census":
+        return census_cost_volume(left, right, cfg.num_disp, cfg.min_disp,
+                                  cfg.block_size)
+    return bt_cost_volume(left, right, cfg.num_disp, cfg.min_disp,
+                          cfg.block_size, cfg.prefilter_cap)

@@ -1,10 +1,15 @@
-"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+"""Build and load the hand-written CUDA kernels (csrc/*.cu), and the
+bookkeeping their wrappers share.
 
 `nvcc` compiles the sources for sm_90a into one shared library with a
 plain C interface, which is loaded with ctypes. The build runs at first
 use, into ``build/`` at the repository root, keyed on a hash of the
 sources and flags, so a fresh checkout builds everything on its first
 kernel call and later processes reuse the library.
+
+Every wrapper (ops/cuda_sgm.py, ops/remap.py) takes a tensor on the CPU
+through its plain version and launches its kernel for a tensor on the
+card; it never falls back. Each launch adds one to LAUNCHES[name].
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["load_library", "build_log"]
+__all__ = ["LAUNCHES", "reset_launches", "load_library", "build_log"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -25,12 +30,19 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures (csrc/sgm_kernels.cu); every function returns cudaError_t.
+# C signatures (csrc/*.cu); every function returns cudaError_t.
 _SIGNATURES = {
     "sgm_cost_volume": [_P] * 7 + [_I] * 5 + [_P],
+    "sgm_census_cost_volume": [_P] * 3 + [_I] * 5 + [_P],
     "sgm_hscan": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "sgm_rowsweep": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P],
+    "sgm_rowsweep": [_P, _P, _I, _P, _I] + [_I] * 7 + [_P],
+    "remap_bilinear": [_P] * 4 + [_I] * 3 + [_P],
 }
+
+# Launch counts per kernel (K3 by direction set; see cuda_sgm.rowsweep).
+LAUNCHES = {name: 0 for name in (
+    "cost_volume", "cost_volume_census", "hscan", "rowsweep", "rowsweep_up",
+    "rowsweep_diag", "rowsweep_diag_up", "remap")}
 
 _lib = None
 
@@ -52,7 +64,7 @@ def _lib_path() -> Path:
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return _BUILD_DIR / h.hexdigest()[:16] / "libsgm_kernels.so"
+    return _BUILD_DIR / h.hexdigest()[:16] / "libkernels.so"
 
 
 def build_log() -> str:
@@ -90,3 +102,44 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def on_card(t) -> bool:
+    """False for a CPU tensor (plain version), True for a CUDA one."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+    return True
+
+
+def check(t, what: str, dtype, shape, device) -> None:
+    """Raise unless t is what a kernel takes: device, dtype, shape and
+    contiguity."""
+    if t.device != device:
+        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def launched(name: str, err: int) -> None:
+    """Raise on a refused launch, else count it."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+def stream() -> int:
+    """The current CUDA stream, as the C functions take it."""
+    import torch
+
+    return torch.cuda.current_stream().cuda_stream

@@ -3,19 +3,21 @@
 Counterpart of depthestimation_tpu/ops/pallas_sgm.py. The three kernels
 (csrc/sgm_kernels.cu) work on the unpadded row-major (H, W, D) volume:
 
-  K1 cost_volume  BT pixel cost + block_size^2 SAD window -> int16 C
+  K1 cost_volume  BT or census pixel cost + block_size^2 SAD window
+                  -> int16 C
   K2 hscan        L->R scan (stores L), then R->L scan fused with the sum
                   -> S_we = L_lr + L_rl, in the _acc_dtype rule's type
-  K3 rowsweep     downward vertical scan fused with the final sum
-                  -> S = S_we + L_down, in the _final_dtype rule's type
+  K3 rowsweep     row-direction scans (down or up, vertical or diagonal)
+                  fused with the running sum -> S
 
-followed by the WTA tail (ops/wta.py, plain torch). This is the sgbm_3way
-path with the BT cost; other modes, census and shapes past the int16
-bounds raise NotImplementedError (check_supported).
+followed by the WTA tail (ops/wta.py, plain torch). All four modes
+compose these as the TPU matcher does (pallas_sgm.py:739-755); shapes
+past the int16 bounds raise NotImplementedError (check_supported).
 
 Each wrapper takes a tensor on the CPU through its plain version (the
 same function in plain torch ops) and launches its kernel for a tensor on
-the card; it never falls back. Each launch adds one to LAUNCHES[name].
+the card; it never falls back. Each launch adds one to LAUNCHES[name]
+(cuda_build.LAUNCHES, shared with the remap kernel).
 
 Storage dtypes are int16 whenever the worst-case magnitude k * bound of
 the k directions summed into the stored tensor fits, as in the JAX
@@ -27,6 +29,9 @@ from __future__ import annotations
 import torch
 
 from . import costs, sgm, wta
+from .cuda_build import (LAUNCHES, check as _check, launched as _launched,
+                         load_library, on_card as _on_card,
+                         reset_launches, stream as _stream)
 
 __all__ = [
     "LAUNCHES", "reset_launches", "kernels_supported", "check_supported",
@@ -34,19 +39,19 @@ __all__ = [
     "rowsweep_plain", "sgm_disparity", "sgm_disparity_plain",
 ]
 
-# Launch counts per kernel wrapper; K2 launches twice per call.
-LAUNCHES = {"cost_volume": 0, "hscan": 0, "rowsweep": 0}
-
 # K2/K3 give each of a warp's 32 lanes at most 8 disparities.
 _MAX_DISP = 256
 
-_NEXT_SLICE = ("the slice that ports the other SGM modes and the census "
-               "cost (see ROADMAP.md)")
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+# The row sweeps of each path count, as (dxs, reverse) per K3 pass
+# (pallas_sgm.py:741-755): downward vertical, then for 4 paths upward
+# vertical; 5 paths add both diagonals to the downward pass, 8 paths also
+# run the mirrored upward pass.
+_SWEEPS = {
+    3: [((0,), False)],
+    4: [((0,), False), ((0,), True)],
+    5: [((0, 1, -1), False)],
+    8: [((0, 1, -1), False), ((0, -1, 1), True)],
+}
 
 
 # ---------------------------------------------------------------------------
@@ -103,18 +108,10 @@ def kernels_supported(cfg, shape) -> bool:
 
 
 def check_supported(cfg, shape) -> None:
-    """Raise NotImplementedError unless this slice's matcher runs cfg."""
-    if cfg.cost != "bt":
-        raise NotImplementedError(
-            f"cost={cfg.cost!r} is not ported yet; it comes with {_NEXT_SLICE}"
-        )
-    if cfg.sgbm_mode != "sgbm_3way":
-        raise NotImplementedError(
-            f"sgbm_mode={cfg.sgbm_mode!r} is not ported yet; it comes with "
-            f"{_NEXT_SLICE}"
-        )
+    """Raise NotImplementedError unless the kernels run cfg at shape."""
     if not kernels_supported(cfg, shape):
         raise NotImplementedError(
+            f"cost={cfg.cost!r}, sgbm_mode={cfg.sgbm_mode!r}, "
             f"num_disp={cfg.num_disp}, min_disp={cfg.min_disp}, "
             f"block_size={cfg.block_size}, prefilter_cap={cfg.prefilter_cap} "
             f"on a {shape[0]}x{shape[1]} image is outside the kernels' "
@@ -127,66 +124,39 @@ def check_supported(cfg, shape) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _on_card(t: torch.Tensor) -> bool:
-    """False for a CPU tensor (plain version), True for a CUDA one."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"no kernel for device {t.device}")
-    return True
-
-
-def _check(t: torch.Tensor, what: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{what} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{what} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{what} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what} must be contiguous")
-
-
-def _launched(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
 def cost_volume_plain(left, right, cfg) -> torch.Tensor:
-    """Plain version of K1: costs.bt_cost_volume truncated to int16."""
-    return costs.bt_cost_volume(
-        left, right, cfg.num_disp, cfg.min_disp, cfg.block_size,
-        cfg.prefilter_cap,
-    ).to(torch.int16)
+    """Plain version of K1: costs.cost_volume truncated to int16."""
+    return costs.cost_volume(left, right, cfg).to(torch.int16)
 
 
 def cost_volume(left: torch.Tensor, right: torch.Tensor, cfg) -> torch.Tensor:
     """K1: (H, W) float32 grayscale pair -> int16 (H, W, D) cost volume.
 
-    The prefilter and its min/max envelopes are plain torch ops, as they
-    are XLA ops around the TPU kernel (pallas_sgm.py:380-383)."""
+    The kernel's inputs are plain torch ops, as they are XLA ops around
+    the TPU kernel (pallas_sgm.py:369-383): for BT the prefilter and its
+    min/max envelopes, for census the packed census words."""
     if not _on_card(left):
         return cost_volume_plain(left, right, cfg)
-    from .cuda_build import load_library
-
     h, w = left.shape
     for t, what in ((left, "left"), (right, "right")):
         _check(t, what, torch.float32, (h, w), left.device)
+    out = torch.empty((h, w, cfg.num_disp), dtype=torch.int16, device=left.device)
+    if cfg.cost == "census":
+        cl = costs.census_transform(left)
+        cr = costs.census_transform(right)
+        _launched("cost_volume_census", load_library().sgm_census_cost_volume(
+            cl.data_ptr(), cr.data_ptr(), out.data_ptr(),
+            h, w, cfg.num_disp, cfg.min_disp, cfg.block_size, _stream(),
+        ))
+        return out
     pl_ = costs.xsobel_prefilter(left, cfg.prefilter_cap)
     pr = costs.xsobel_prefilter(right, cfg.prefilter_cap)
     planes = [pl_, *costs.half_sample_envelope(pl_),
               pr, *costs.half_sample_envelope(pr)]
-    out = torch.empty((h, w, cfg.num_disp), dtype=torch.int16, device=left.device)
-    err = load_library().sgm_cost_volume(
+    _launched("cost_volume", load_library().sgm_cost_volume(
         *(p.data_ptr() for p in planes), out.data_ptr(),
         h, w, cfg.num_disp, cfg.min_disp, cfg.block_size, _stream(),
-    )
-    _launched("cost_volume", err)
+    ))
     return out
 
 
@@ -201,8 +171,6 @@ def hscan(cost: torch.Tensor, cfg) -> torch.Tensor:
     L->R scan stores L (int16), the R->L scan adds it."""
     if not _on_card(cost):
         return hscan_plain(cost, cfg)
-    from .cuda_build import load_library
-
     lib = load_library()
     h, w, d = cost.shape
     _check(cost, "cost", torch.int16, (h, w, d), cost.device)
@@ -220,35 +188,57 @@ def hscan(cost: torch.Tensor, cfg) -> torch.Tensor:
     return out
 
 
-def rowsweep_plain(cost, acc, cfg) -> torch.Tensor:
-    """Plain version of K3: acc + the downward vertical direction of
-    sgm.aggregate, in the _final_dtype rule's type."""
-    down = sgm.aggregate_dir(cost.to(torch.float32), 1, 0,
-                             float(cfg.p1), float(cfg.p2))
-    return (acc.to(torch.float32) + down).to(_final_dtype(cfg))
+def _rowsweep_name(dxs, reverse) -> str:
+    """LAUNCHES key of a K3 pass: rowsweep[_diag][_up]."""
+    return ("rowsweep" + ("_diag" if any(dxs) else "")
+            + ("_up" if reverse else ""))
 
 
-def rowsweep(cost: torch.Tensor, acc: torch.Tensor, cfg) -> torch.Tensor:
-    """K3: S = acc + L_down, the downward vertical scan over int16 C."""
+def rowsweep_plain(cost, acc, cfg, dxs, reverse, out_dtype) -> torch.Tensor:
+    """Plain version of K3: acc + the sum of sgm.aggregate_dir(cost, dy,
+    dx) over dx in dxs, dy = -1 if reverse else +1, in out_dtype."""
+    dy = -1 if reverse else 1
+    c = cost.to(torch.float32)
+    total = acc.to(torch.float32)
+    for dx in dxs:
+        total = total + sgm.aggregate_dir(c, dy, dx, float(cfg.p1),
+                                          float(cfg.p2))
+    return total.to(out_dtype)
+
+
+def rowsweep(cost: torch.Tensor, acc: torch.Tensor, cfg, dxs, reverse: bool,
+             out_dtype: torch.dtype) -> torch.Tensor:
+    """K3: acc + the row-direction sweeps (dy = -1 if reverse else +1, one
+    per dx in dxs) over int16 C, stored in out_dtype (the TPU signature,
+    pallas_sgm.py:658). One launch per direction; partial sums between
+    launches are int32, so any order of the integer sums is exact."""
     if not _on_card(cost):
-        return rowsweep_plain(cost, acc, cfg)
-    from .cuda_build import load_library
-
+        return rowsweep_plain(cost, acc, cfg, dxs, reverse, out_dtype)
+    lib = load_library()
     h, w, d = cost.shape
     _check(cost, "cost", torch.int16, (h, w, d), cost.device)
-    _check(acc, "acc", _acc_dtype(cfg), (h, w, d), cost.device)
-    final_dt = _final_dtype(cfg)
-    out = torch.empty((h, w, d), dtype=final_dt, device=cost.device)
-    _launched("rowsweep", load_library().sgm_rowsweep(
-        cost.data_ptr(), acc.data_ptr(), int(acc.dtype == torch.int32),
-        out.data_ptr(), int(final_dt == torch.int32), h, w, d,
-        cfg.p1, cfg.p2, _stream(),
-    ))
-    return out
+    if acc.dtype not in (torch.int16, torch.int32):
+        raise TypeError(f"acc has dtype {acc.dtype}, expected int16 or int32")
+    _check(acc, "acc", acc.dtype, (h, w, d), cost.device)
+    if out_dtype not in (torch.int16, torch.int32):
+        raise TypeError(f"out_dtype {out_dtype} is not int16 or int32")
+    if not dxs or any(dx not in (-1, 0, 1) for dx in dxs):
+        raise ValueError(f"dxs must be a non-empty list of -1, 0, 1: {dxs}")
+    name = _rowsweep_name(dxs, reverse)
+    for i, dx in enumerate(dxs):
+        dt = out_dtype if i == len(dxs) - 1 else torch.int32
+        out = torch.empty((h, w, d), dtype=dt, device=cost.device)
+        _launched(name, lib.sgm_rowsweep(
+            cost.data_ptr(), acc.data_ptr(), int(acc.dtype == torch.int32),
+            out.data_ptr(), int(dt == torch.int32), h, w, d,
+            -1 if reverse else 1, dx, cfg.p1, cfg.p2, _stream(),
+        ))
+        acc = out
+    return acc
 
 
 # ---------------------------------------------------------------------------
-# Orchestration (pallas_sgm.sgm_disparity, sgbm_3way)
+# Orchestration (pallas_sgm.sgm_disparity)
 # ---------------------------------------------------------------------------
 
 
@@ -257,7 +247,11 @@ def _matcher(left, right, cfg, cost_fn, hscan_fn, rowsweep_fn):
     left = left.to(torch.float32).contiguous()
     right = right.to(torch.float32).contiguous()
     c = cost_fn(left, right, cfg)
-    s = rowsweep_fn(c, hscan_fn(c, cfg), cfg)
+    s = hscan_fn(c, cfg)
+    sweeps = _SWEEPS[cfg.num_paths]
+    for i, (dxs, reverse) in enumerate(sweeps):
+        dt = _final_dtype(cfg) if i == len(sweeps) - 1 else _acc_dtype(cfg)
+        s = rowsweep_fn(c, s, cfg, dxs, reverse, dt)
     return wta.wta_disparity(s, cfg.min_disp, cfg.uniqueness_ratio,
                              cfg.disp12_max_diff)
 

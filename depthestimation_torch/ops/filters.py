@@ -74,7 +74,10 @@ def box_mean(x: torch.Tensor, k: int) -> torch.Tensor:
     t = s[:, 0:w]
     for i in range(1, k):
         t = t + s[:, i:i + w]
-    return t / (k * k)
+    # Divide by a tensor on t's device: for a host scalar divisor CUDA
+    # multiplies by its reciprocal while the CPU (and XLA) divide, which
+    # differs in the last bit on fractional input.
+    return t / torch.full((), float(k * k), device=t.device)
 
 
 def detect_outliers(disparity: torch.Tensor, threshold: float = 3.0, kernel_size: int = 5):

@@ -7,21 +7,22 @@ stereo_core.py). Stage order mirrors _process_pair (stereo_core.py:162-200):
   postprocess -> optional WLS -> disparity->depth.
 
 PyTorch runs eagerly, so there is no compilation cache: every call runs
-the stages directly on the pipeline's device. The matcher is the CUDA
-kernel route on the card and its plain version on the CPU
-(ops/cuda_sgm.py). Rectification (full calibration) comes with a later
-slice and raises NotImplementedError here.
+the stages directly on the pipeline's device. The matcher and the
+rectification remap are CUDA kernels on the card and their plain versions
+on the CPU (ops/cuda_sgm.py, ops/remap.py).
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .calib import RectificationCache
 from .config import SGMConfig
-from .ops import color, cuda_sgm, depth as depth_ops, filters, wls
+from .ops import color, cuda_sgm, depth as depth_ops, filters, remap, wls
 
 __all__ = ["StereoPipeline", "raw_disparity", "postprocess_and_depth",
            "stereo_depth_fn"]
@@ -137,8 +138,8 @@ def stereo_depth_fn(
 class StereoPipeline:
     """Stateful facade over the pipeline (the StereoCore equivalent).
 
-    Holds the frozen config, the device and the temporal-smoother carry.
-    device defaults to "cuda" and raises RuntimeError when no card is
+    Holds the frozen config, the device, a rectification-map cache and the
+    temporal-smoother carry. device defaults to "cuda" and raises RuntimeError when no card is
     usable; pass device="cpu" for the plain versions.
     """
 
@@ -148,6 +149,7 @@ class StereoPipeline:
         self.downscale_factor = downscale_factor
         self.fast_mode = fast_mode
         self.device = _resolve_device(device)
+        self._rect_cache = RectificationCache()
         self._prev_disp = None  # temporal-smoother state (device tensor)
         self.disparity_map = None
         self.depth_map = None
@@ -173,16 +175,32 @@ class StereoPipeline:
         return torch.tensor(np.asarray(img), device=self.device)
 
     def prepare_rectified(self, left_img, right_img):
-        """Grayscale float32 pair on the pipeline's device
-        (stereo_core.py:138-160 without calibration)."""
-        if self.cfg.has_full_calibration():
-            raise NotImplementedError(
-                "full-calibration rectification is not ported yet; it comes "
-                "with the rectification slice (see ROADMAP.md)"
+        """Grayscale float32 pair on the pipeline's device, rectified when
+        full calibration is present (stereo_core.py:138-160; JAX
+        pipeline.py:210-245): grayscale, resize to the calibration size
+        after a RuntimeWarning if an image differs from it, then one remap
+        launch for both images through the cached device maps."""
+        cfg = self.cfg
+        gray = [color.to_grayscale(self._tensor(img)).to(torch.float32)
+                for img in (left_img, right_img)]
+        if not cfg.has_full_calibration():
+            return gray[0], gray[1]
+        size_hw = (cfg.calib.image_height, cfg.calib.image_width)
+        if any(tuple(g.shape) != size_hw for g in gray):
+            # Reference parity: rectify.py:99-104 warns before resizing an
+            # image that disagrees with the calibration size.
+            warnings.warn(
+                f"Image size {tuple(gray[0].shape)} does not match "
+                f"calibration size {size_hw}; resizing to match.",
+                RuntimeWarning,
+                stacklevel=2,
             )
-        gray_l = color.to_grayscale(self._tensor(left_img))
-        gray_r = color.to_grayscale(self._tensor(right_img))
-        return gray_l.to(torch.float32), gray_r.to(torch.float32)
+            gray = [g if tuple(g.shape) == size_hw
+                    else color.resize_bilinear(g, size_hw) for g in gray]
+        map_x, map_y = self._rect_cache.device_maps(
+            cfg.calib, cfg.baseline, 1.0, self.device)
+        rect = remap.remap_bilinear(torch.stack(gray), map_x, map_y)
+        return rect[0], rect[1]
 
     def compute_disparity(self, rectified_l, rectified_r):
         """Matcher-only stage (compute_disparity parity,

@@ -5,6 +5,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "depthestimation_torch",
     "depthestimation_torch.api",
+    "depthestimation_torch.calib",
     "depthestimation_torch.config",
     "depthestimation_torch.pipeline",
     "depthestimation_torch.io.input",
@@ -29,6 +31,7 @@ PORT_MODULES = [
     "depthestimation_torch.ops.cuda_sgm",
     "depthestimation_torch.ops.depth",
     "depthestimation_torch.ops.filters",
+    "depthestimation_torch.ops.remap",
     "depthestimation_torch.ops.sgm",
     "depthestimation_torch.ops.wls",
     "depthestimation_torch.ops.wta",
@@ -124,9 +127,9 @@ def test_final_dtype_int32_where_int16_wraps():
 @pytest.mark.parametrize(
     "kw,shape,match",
     [
-        (dict(cost="census"), (64, 256), "census"),
-        (dict(sgbm_mode="hh4"), (64, 256), "hh4"),
-        (dict(sgbm_mode="hh"), (64, 256), "hh"),
+        # Census costs at most 24 a pixel, so its window may be wider than
+        # BT's (see test_default_config_supported) but not without end.
+        (dict(cost="census", block_size=41), (64, 256), "census"),
         (dict(block_size=15), (64, 256), "int16 bounds"),
         (dict(num_disp=512), (64, 1024), "int16 bounds"),
         (dict(num_disp=128), (64, 128), "int16 bounds"),
@@ -142,16 +145,25 @@ def test_unsupported_configs_raise(kw, shape, match):
 
 def test_default_config_supported():
     cuda_sgm.check_supported(config.SGMConfig(), (1080, 1920))
+    for kw in (dict(sgbm_mode="hh4"), dict(sgbm_mode="sgbm"),
+               dict(sgbm_mode="hh"), dict(cost="census"),
+               dict(cost="census", block_size=15)):
+        cuda_sgm.check_supported(config.SGMConfig(**kw), (1080, 1920))
 
 
 def test_full_calibration_raises():
+    """Full calibration takes the rectification path: an image whose size
+    differs from the calibration's raises its RuntimeWarning (an error
+    here, so nothing is resized to the calibration's 2964x1988)."""
     pipe = StereoPipeline(device="cpu")
     pipe.configure(**config.parse_calib_file(
         os.path.join(REPO, "assets", "calib.txt"))["sgbm_kwargs"])
     assert pipe.cfg.has_full_calibration()
     img = np.zeros((48, 96), np.uint8)
-    with pytest.raises(NotImplementedError, match="rectification"):
-        pipe.estimate_depth(img, img)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        with pytest.raises(RuntimeWarning, match="calibration size"):
+            pipe.estimate_depth(img, img)
 
 
 def test_default_device_needs_cuda(monkeypatch):

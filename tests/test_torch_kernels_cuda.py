@@ -1,4 +1,5 @@
-"""The CUDA matcher kernels against their plain PyTorch versions on the card.
+"""The CUDA kernels (matcher and remap) against their plain PyTorch
+versions on the card.
 
 CUDA kernels have no CPU mode, so every test here needs an NVIDIA GPU and
 skips without one. This file imports nothing of JAX; on a machine with a
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 from depthestimation_torch import SGMConfig, StereoDepthEstimator
-from depthestimation_torch.ops import cuda_sgm
+from depthestimation_torch.ops import cuda_sgm, filters, remap
 
 pytestmark = pytest.mark.cuda
 
@@ -37,9 +38,17 @@ def card():
     return torch.device("cuda")
 
 
-def pair(h, w, shift, seed, device):
+# The K3 passes of the four modes, as (dxs, reverse).
+SWEEPS = [((0,), False), ((0,), True), ((0, 1, -1), False), ((0, -1, 1), True)]
+
+
+def pair(h, w, shift, seed, device, fractional=False):
+    """Integer-valued pair, or with fractional=True a smoothed float one
+    (like a rectified image), where float32 sums round."""
     rng = np.random.default_rng(seed)
     base = rng.integers(0, 255, (h, w + shift)).astype(np.float32)
+    if fractional:
+        base = (base + np.roll(base, 1, 0) * 0.7 + np.roll(base, 1, 1) * 0.3) / 2.1
     left = torch.tensor(base[:, :w], device=device)
     right = torch.tensor(base[:, shift:], device=device)
     return left, right
@@ -54,27 +63,87 @@ def assert_same(got, want):
 def test_kernels_match_plain(card, h, w, kw):
     cfg = SGMConfig(**kw)
     left, right = pair(h, w, 7, seed=h + w, device=card)
+    final = cuda_sgm._final_dtype(cfg)
     cuda_sgm.reset_launches()
     c = cuda_sgm.cost_volume(left, right, cfg)
     swe = cuda_sgm.hscan(c, cfg)
-    s = cuda_sgm.rowsweep(c, swe, cfg)
+    s = cuda_sgm.rowsweep(c, swe, cfg, (0,), False, final)
     torch.cuda.synchronize()
-    assert cuda_sgm.LAUNCHES == {"cost_volume": 1, "hscan": 2, "rowsweep": 1}
+    counts = {k: v for k, v in cuda_sgm.LAUNCHES.items() if v}
+    assert counts == {"cost_volume": 1, "hscan": 2, "rowsweep": 1}
     assert swe.dtype == cuda_sgm._acc_dtype(cfg)
-    assert s.dtype == cuda_sgm._final_dtype(cfg)
+    assert s.dtype == final
     assert_same(c, cuda_sgm.cost_volume_plain(left, right, cfg))
     assert_same(swe, cuda_sgm.hscan_plain(c, cfg))
-    assert_same(s, cuda_sgm.rowsweep_plain(c, swe, cfg))
+    assert_same(s, cuda_sgm.rowsweep_plain(c, swe, cfg, (0,), False, final))
     # The plain versions on the card agree with the CPU.
     assert_same(c.cpu(), cuda_sgm.cost_volume(left.cpu(), right.cpu(), cfg))
 
 
-def test_matcher_and_estimator_match_cpu(card):
+@pytest.mark.parametrize("h,w,kw", CASES)
+def test_cost_volume_fractional_and_census(card, h, w, kw):
+    """K1's window sum runs in the plain version's order, so BT is exact
+    on fractional input too; census is exact on integer words."""
+    cfg = SGMConfig(**kw)
+    left, right = pair(h, w, 7, seed=h * w, device=card, fractional=True)
+    got = cuda_sgm.cost_volume(left, right, cfg)
+    assert_same(got, cuda_sgm.cost_volume_plain(left, right, cfg))
+    assert_same(got.cpu(), cuda_sgm.cost_volume(left.cpu(), right.cpu(), cfg))
+    census = SGMConfig(cost="census", **kw)
+    left, right = pair(h, w, 7, seed=h + w, device=card)
+    cuda_sgm.reset_launches()
+    got = cuda_sgm.cost_volume(left, right, census)
+    assert cuda_sgm.LAUNCHES["cost_volume_census"] == 1
+    assert_same(got, cuda_sgm.cost_volume_plain(left, right, census))
+
+
+@pytest.mark.parametrize("dxs,reverse", SWEEPS)
+@pytest.mark.parametrize("h,w,kw", CASES)
+def test_rowsweep_variants_match_plain(card, h, w, kw, dxs, reverse):
+    cfg = SGMConfig(**kw)
+    left, right = pair(h, w, 7, seed=h + w, device=card)
+    c = cuda_sgm.cost_volume(left, right, cfg)
+    acc = cuda_sgm.hscan(c, cfg)
+    for out_dtype in (cuda_sgm._acc_dtype(cfg), cuda_sgm._final_dtype(cfg)):
+        cuda_sgm.reset_launches()
+        got = cuda_sgm.rowsweep(c, acc, cfg, dxs, reverse, out_dtype)
+        torch.cuda.synchronize()
+        name = cuda_sgm._rowsweep_name(dxs, reverse)
+        assert cuda_sgm.LAUNCHES[name] == len(dxs)
+        assert_same(got, cuda_sgm.rowsweep_plain(c, acc, cfg, dxs, reverse,
+                                                 out_dtype))
+
+
+@pytest.mark.parametrize("h,w", [(24, 100), (37, 150), (64, 300), (5, 700)])
+def test_remap_matches_plain(card, h, w):
+    rng = np.random.default_rng(h + w)
+    img = torch.tensor(rng.uniform(0, 255, (2, h, w)).astype(np.float32), device=card)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    # Warps that leave the image on every side, and one far outside.
+    mx = np.stack([xx * 1.03 - 2.2 + 2.5 * np.sin(yy / 5), xx + 0.37])
+    my = np.stack([yy * 1.05 - 1.4 + 1.5 * np.cos(xx / 11), yy - 1e6])
+    mx, my = (torch.tensor(m.astype(np.float32), device=card) for m in (mx, my))
+    cuda_sgm.reset_launches()
+    got = remap.remap_bilinear(img, mx, my)
+    torch.cuda.synchronize()
+    assert cuda_sgm.LAUNCHES["remap"] == 1
+    want = remap.remap_bilinear_plain(img, mx, my)
+    assert torch.equal(got, want), (got - want).abs().max()
+    assert torch.equal(got.cpu(), remap.remap_bilinear(img.cpu(), mx.cpu(), my.cpu()))
+    assert (got[1] == 0).all()
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(sgbm_mode="hh4"),
+                                dict(sgbm_mode="sgbm"), dict(sgbm_mode="hh"),
+                                dict(cost="census")])
+def test_matcher_and_estimator_match_cpu(card, kw):
     left, right = pair(48, 256, 9, seed=3, device=card)
-    cfg = SGMConfig(num_disp=64)
+    cfg = SGMConfig(num_disp=64, **kw)
     got = cuda_sgm.sgm_disparity(left, right, cfg)
     assert torch.equal(got, cuda_sgm.sgm_disparity_plain(left, right, cfg))
     assert torch.equal(got.cpu(), cuda_sgm.sgm_disparity(left.cpu(), right.cpu(), cfg))
+    if kw:
+        return
 
     rgb = [np.repeat(t.cpu().numpy().astype(np.uint8)[..., None], 3, -1)
            for t in (left, right)]
@@ -88,6 +157,13 @@ def test_matcher_and_estimator_match_cpu(card):
     np.testing.assert_allclose(outs[0][1], outs[1][1], rtol=1e-5)
 
 
+def test_box_mean_matches_cpu(card):
+    """The WLS box means divide alike on both devices (CUDA would multiply
+    by the reciprocal of a host scalar divisor)."""
+    x = torch.tensor(np.random.default_rng(5).uniform(0, 255, (40, 90)).astype(np.float32))
+    assert torch.equal(filters.box_mean(x.to(card), 17).cpu(), filters.box_mean(x, 17))
+
+
 def test_wrapper_checks(card):
     cfg = SGMConfig(num_disp=16)
     c = torch.zeros((8, 64, 16), dtype=torch.int32, device=card)
@@ -98,4 +174,10 @@ def test_wrapper_checks(card):
         cuda_sgm.hscan(c, cfg)
     c = torch.zeros((8, 64, 16), dtype=torch.int16, device=card)
     with pytest.raises(ValueError, match="shape"):
-        cuda_sgm.rowsweep(c, torch.zeros((8, 64, 32), dtype=torch.int16, device=card), cfg)
+        cuda_sgm.rowsweep(c, torch.zeros((8, 64, 32), dtype=torch.int16, device=card),
+                          cfg, (0,), False, torch.int16)
+    with pytest.raises(ValueError, match="dxs"):
+        cuda_sgm.rowsweep(c, c, cfg, (0, 2), False, torch.int16)
+    img = torch.zeros((8, 64), device=card)
+    with pytest.raises(ValueError, match="shape"):
+        remap.remap_bilinear(img, img, torch.zeros((8, 63), device=card))

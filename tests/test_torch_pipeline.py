@@ -42,7 +42,7 @@ def test_raw_disparity_exact(kw):
                                  torch.tensor(right, dtype=torch.float32), cfg)
     np.testing.assert_array_equal(got.numpy(), want)
     # The wrappers took their plain versions on the CPU: no launches.
-    assert cuda_sgm.LAUNCHES == {"cost_volume": 0, "hscan": 0, "rowsweep": 0}
+    assert not any(cuda_sgm.LAUNCHES.values())
     assert (np.abs(want[:, kw["num_disp"]:] - SHIFT) <= 0.5).mean() > 0.9
 
 
