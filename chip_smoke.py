@@ -6,9 +6,11 @@ Phases (any failure exits non-zero and prints no result):
   1. device: the card's name and power limit; build the CUDA kernels from
      depthestimation_torch/csrc and report the build time;
   2. kernels against their plain PyTorch versions at 1080x1920,
-     num_disp=128, bit exact, each timed with CUDA events (median of 7
-     after a warm-up): K1 cost_volume (BT on an integer pair and on the
-     fractional rectified pair, census), K2 hscan, K3 rowsweep in its four
+     num_disp=128, bit exact, each timed on the card's own clock (CUDA
+     events around one wrapper call enqueued behind a sleep kernel, so
+     host time does not count; median of 7 after a warm-up): K1
+     cost_volume (BT on an integer pair and on the fractional rectified
+     pair, census), K2 hscan, K3 rowsweep in its four
      variants (down, up, diagonals down, diagonals up, with the storage
      types of sgbm_3way, hh4 and hh), and the remap of both images of a
      pair through the mild rig's maps, beside torch's grid_sample as a
@@ -41,6 +43,7 @@ Imports nothing of JAX or depthestimation_tpu.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -148,14 +151,24 @@ def seen_by_both(maps_x, maps_y, shift, num_disp, pad=3):
     return inside[0][:, num_disp:] & inside[1][:, num_disp - shift:w - shift]
 
 
+# Cycles of the card's sleep kernel run before each timed call (~2 ms at
+# the H100's clock): the host enqueues the call while the card sleeps, so
+# the events bracket the call's device time and not the host's time to
+# enqueue it, which for a wrapper (Python, checks, ctypes) is tens of
+# microseconds, as much as a small kernel.
+SLEEP_CYCLES = 4_000_000
+
+
 def time_ms(fn, runs=7) -> float:
-    """Median milliseconds of fn() on the card, after one warm-up call."""
+    """Median device milliseconds of fn() on the card, after one warm-up
+    call."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -227,8 +240,8 @@ def main() -> int:
     from depthestimation_torch import StereoDepthEstimator, SGMConfig
     from depthestimation_torch import pipeline
     from depthestimation_torch.calib import RectificationCache
-    from depthestimation_torch.ops import (costs, cuda_build, cuda_sgm,
-                                           filters, remap, wta)
+    from depthestimation_torch.ops import (cuda_build, cuda_sgm, filters,
+                                           remap, wta)
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -239,9 +252,14 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_build.load_library()
     log(f"[1] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    entry = "?"
     for line in cuda_build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            log("    ptxas:", line.strip())
+        m = re.search(r"entry function '\w*?\d([a-z][a-z_]*_kernel)"
+                      r"(I(?:L[a-z]\d+E|[a-z])*)?", line)
+        if m:
+            entry = m.group(1) + (m.group(2) or "")
+        elif "registers" in line or "spill" in line:
+            log(f"    ptxas {entry}:", line.strip())
 
     # ---- 2. kernels against their plain versions, 1080x1920x128 ----
     cfg = SGMConfig(num_disp=D)
@@ -388,9 +406,6 @@ def main() -> int:
     raw_ns = pipeline.raw_disparity(pl_, pr_, ncfg)
     s = cuda_sgm.rowsweep(c, swe, dcfg, (0,), False, cuda_sgm._final_dtype(dcfg))
     stages = {
-        "cost_volume_prefilter": lambda: [
-            costs.half_sample_envelope(costs.xsobel_prefilter(t, dcfg.prefilter_cap))
-            for t in (pl_, pr_)],
         "matcher": lambda: cuda_sgm.sgm_disparity(pl_, pr_, dcfg),
         "wta_lr_tail": lambda: wta.wta_disparity(
             s, dcfg.min_disp, dcfg.uniqueness_ratio, dcfg.disp12_max_diff),

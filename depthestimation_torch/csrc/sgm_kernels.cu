@@ -16,6 +16,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -28,124 +30,332 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 }
 
 // ---------------------------------------------------------------------------
-// K1: cost volume with the fused block_size^2 SAD window, BT or census.
+// K1: cost volume straight from the grayscale pair, with the prefilter and
+// the census words fused in.
 //
 // Replaces depthestimation_tpu/ops/pallas_sgm.py::_cost_kernel (both
-// routes). C[y, x, d] = sum over |dy|, |dx| <= r of pc(y', x', d), where
-// the tap (y', x') is first clamped into the image and only then indexes
-// the right image at clamp(x' - min_disp - d, 0, w - 1): the edge padding
-// of costs._block_sum acts on the pixel-cost volume, which is what the TPU
-// kernel's clamp_tap reproduces. The pixel cost pc is
-//   BT:     min of the two half-sample envelope distances, from three
-//           float32 planes per image (prefiltered value, envelope min and
-//           max);
-//   census: popcount(wl ^ wr) of one plane of packed census words per
-//           image.
+// routes) and the XLA ops that feed it there (the x-Sobel prefilter and
+// its half-sample envelopes, or the census words). C[y, x, d] = sum over
+// |dy|, |dx| <= r of pc(y', x', d), where the tap (y', x') is first
+// clamped into the image and only then indexes the right image at
+// clamp(x' - min_disp - d, 0, w - 1): the edge padding of costs._block_sum
+// acts on the pixel-cost volume. The pixel cost pc is
+//   BT:     min of the two half-sample envelope distances between the
+//           prefiltered images (costs.xsobel_prefilter and
+//           costs.half_sample_envelope);
+//   census: popcount(wl ^ wr) of the packed radius-2 census words
+//           (costs.census_transform).
 //
-// Bound: the int16 output write (H*W*D*2 bytes) -- the input planes are
-// ~1/10 of it. Design: one block per (row y, 64-column tile), one thread
-// per disparity. The block stages the block_size input rows it needs
-// (left: tile + 2r columns; right: tile + 2r + D - 1 columns, the span
-// every (x, d) pair can reach) in shared memory, so each input value is
-// read from device memory once per block. Each thread walks the tile's
-// tap columns, keeps the last block_size column sums in a shared ring and
-// writes one output per column; a warp's writes are 64 contiguous bytes.
+// Bound: bytes. The int16 output is H*W*D*2 bytes (531 MB at
+// 1080x1920x128: 0.163 ms at 3.35 TB/s); the two float32 images read are
+// 1/32 of that. The arithmetic is one pixel cost (~10 operations) and
+// 2*(block_size-1) adds per output, well under the card's rate if each
+// pixel cost is evaluated about once.
 //
-// Summation order is costs._block_sum's: each column sum adds its rows
-// top to bottom, and each window adds its column sums left to right
-// (oldest ring slot first), both from 0. So the float32 result equals the
-// plain version bit for bit on any input, not only on integer images
-// where every partial sum is exact.
+// Design. A block covers 32 tap rows (32 - 2r output rows), 64 output
+// columns and 64 disparities, as 8 warps of 8 disparities each.
+//  - Staging, once per block: the prefiltered plane and its two envelopes
+//    (or the census words) of both images, for the block's 32 tap rows and
+//    the columns its taps reach, computed from the raw images (loads
+//    through L1) into shared memory. No plane of the pair goes through
+//    device memory, and no op runs before the launch.
+//  - Main loop: lane l of every warp owns tap row l, and the warp walks the
+//    tap columns left to right. At each column a thread evaluates the pixel
+//    costs of its 8 disparities once. Disparity d0 + k matches right column
+//    xc - min_disp - d0 - k, so one new right column enters per step and
+//    the other seven slide along in registers.
+//  - The column sum over block_size rows takes the rows above from the
+//    lanes above (__shfl_up_sync), added top to bottom from the first.
+//  - The window sum keeps block_size - 1 open partial sums per disparity in
+//    registers: each new column sum completes the oldest window and is
+//    added to every other, so each window adds its columns left to right
+//    from the first. A tap column clamped at the image edge is fed as many
+//    times as the taps it stands for.
+//  - The output goes out through shared memory: each thread stages its 8
+//    disparities of one (y, x) with one 16-byte store, and every 4 output
+//    columns the block copies them out so that 8 threads write each
+//    (y, x)'s 64 disparities as one whole 128-byte line (a warp, 4 lines
+//    per instruction). Stored straight from the loop, a warp instruction
+//    would write 16 bytes to each of 28 rows: half sectors, each its own
+//    L2 request.
+//
+// Summation order is costs._block_sum's (rows, then columns, each from the
+// first term), and the prefilter and envelopes round each operation on its
+// own as torch does, so the result equals the plain version bit for bit on
+// any input, not only on integer images where every partial sum is exact.
 // ---------------------------------------------------------------------------
 
-constexpr int kTileX = 64;
+constexpr int kK1Rows = 32;   // tap rows of a block, one per lane
+constexpr int kK1TileX = 64;  // output columns of a block
+constexpr int kK1DispK = 8;   // disparities of a thread: one 16-byte store
+constexpr int kK1Warps = 8;
+constexpr int kK1DispBlock = kK1DispK * kK1Warps;
+// Output staging: kK1Slots output columns of kK1Rows rows x 64 disparities
+// (int16), each row padded to 72 so that a warp's 16-byte stores to 32
+// rows fall in different banks.
+constexpr int kK1Slots = 4;
+constexpr int kK1OutPitch = kK1DispBlock + 8;
+constexpr int kK1OutBytes = kK1Slots * kK1Rows * kK1OutPitch * 2;
 
-template <bool CENSUS>
-struct PixelCost;
+// Shared-memory pitches, in 4-byte words, of one plane row: the columns a
+// block's taps reach on the left and on the right image, one more on each
+// side for the BT envelopes, rounded up to an odd count so that the 32
+// lanes (32 rows, same column) hit 32 different banks.
+template <int BS>
+__host__ __device__ constexpr int k1_pitch_l() {
+  return (kK1TileX + 2 * (BS / 2) + 2) | 1;
+}
+template <int BS>
+__host__ __device__ constexpr int k1_pitch_r() {
+  return (kK1TileX + 2 * (BS / 2) + kK1DispBlock + 1) | 1;
+}
 
-template <>
-struct PixelCost<false> {
-  using T = float;
-  static constexpr int kPlanes = 3;
-  // L and R point at plane 0 of the staged rows; planes are `lp` and `rp`
-  // elements apart.
-  __device__ static float at(const float* L, int lp, const float* R, int rp) {
-    const float u = L[0], u0 = L[lp], u1 = L[2 * lp];
-    const float v = R[0], v0 = R[rp], v1 = R[2 * rp];
-    const float c0 = fmaxf(fmaxf(u - v1, v0 - u), 0.f);
-    const float c1 = fmaxf(fmaxf(v - u1, u0 - v), 0.f);
-    return fminf(c0, c1);
-  }
-};
+// costs.xsobel_prefilter at (y, x): edge-clamped taps, torch's association
+// ((a - b) + 2 (c - d)) + (e - f), each operation rounded on its own.
+__device__ __forceinline__ float k1_prefilter(const float* __restrict__ img,
+                                              int y, int x, int h, int w,
+                                              float cap) {
+  const float* a = img + (size_t)max(y - 1, 0) * w;
+  const float* b = img + (size_t)y * w;
+  const float* c = img + (size_t)min(y + 1, h - 1) * w;
+  const int xm = max(x - 1, 0), xp = min(x + 1, w - 1);
+  const float dx = __fadd_rn(
+      __fadd_rn(__fsub_rn(__ldg(a + xp), __ldg(a + xm)),
+                __fmul_rn(2.f, __fsub_rn(__ldg(b + xp), __ldg(b + xm)))),
+      __fsub_rn(__ldg(c + xp), __ldg(c + xm)));
+  return __fadd_rn(fminf(fmaxf(dx, -cap), cap), cap);
+}
 
-template <>
-struct PixelCost<true> {
-  using T = uint32_t;
-  static constexpr int kPlanes = 1;
-  __device__ static float at(const uint32_t* L, int, const uint32_t* R, int) {
-    return (float)__popc(L[0] ^ R[0]);
-  }
-};
-
-template <bool CENSUS>
-__global__ void cost_volume_kernel(
-    const typename PixelCost<CENSUS>::T* __restrict__ l0,
-    const typename PixelCost<CENSUS>::T* __restrict__ l1,
-    const typename PixelCost<CENSUS>::T* __restrict__ l2,
-    const typename PixelCost<CENSUS>::T* __restrict__ r0,
-    const typename PixelCost<CENSUS>::T* __restrict__ r1,
-    const typename PixelCost<CENSUS>::T* __restrict__ r2,
-    int16_t* __restrict__ out, int h, int w, int D, int min_disp, int bs) {
-  using PC = PixelCost<CENSUS>;
-  using T = typename PC::T;
-  constexpr int NP = PC::kPlanes;
-  extern __shared__ float smem[];
-  const int r = bs / 2;
-  const int y = blockIdx.y;
-  const int x0 = blockIdx.x * kTileX;
-  const int lw = kTileX + 2 * r;
-  const int rw = kTileX + 2 * r + D - 1;
-  const int rbase = x0 - r - min_disp - (D - 1);
-  T* L = reinterpret_cast<T*>(smem);  // [NP][bs][lw]
-  T* R = L + NP * bs * lw;             // [NP][bs][rw]
-  float* ring = reinterpret_cast<float*>(R + NP * bs * rw);  // [bs][blockDim.x]
-
-  const T* lsrc[3] = {l0, l1, l2};
-  const T* rsrc[3] = {r0, r1, r2};
-  for (int i = threadIdx.x; i < NP * bs * lw; i += blockDim.x) {
-    const int p = i / (bs * lw), k = (i / lw) % bs, j = i % lw;
-    const int yy = clampi(y - r + k, 0, h - 1);
-    L[i] = lsrc[p][yy * w + clampi(x0 - r + j, 0, w - 1)];
-  }
-  for (int i = threadIdx.x; i < NP * bs * rw; i += blockDim.x) {
-    const int p = i / (bs * rw), k = (i / rw) % bs, j = i % rw;
-    const int yy = clampi(y - r + k, 0, h - 1);
-    R[i] = rsrc[p][yy * w + clampi(rbase + j, 0, w - 1)];
-  }
-  __syncthreads();
-
-  const int d = threadIdx.x;
-  if (d >= D) return;  // no barrier below
-  const int taps = min(kTileX, w - x0) + 2 * r;
-  for (int i = 0; i < taps; ++i) {
-    const int xc = clampi(x0 - r + i, 0, w - 1);
-    const int jr = xc - min_disp - d - rbase;
-    float col = 0.f;
-    for (int k = 0; k < bs; ++k)
-      col += PC::at(L + k * lw + i, bs * lw, R + k * rw + jr, bs * rw);
-    const int slot = i % bs;
-    ring[slot * blockDim.x + d] = col;
-    if (i >= 2 * r) {
-      // Slot + 1 (mod bs) holds the oldest tap, i - 2r; slot the newest.
-      float s = 0.f;
-      for (int k = 0, j = slot; k < bs; ++k) {
-        j = j + 1 == bs ? 0 : j + 1;
-        s += ring[j * blockDim.x + d];
-      }
-      const int x = x0 + i - 2 * r;
-      out[((size_t)y * w + x) * D + d] = (int16_t)(int)s;
+// costs.census_transform at (y, x): bit k is set where the k-th neighbour
+// of the edge-clamped 5x5 window (row-major, centre skipped) is below the
+// centre.
+__device__ __forceinline__ uint32_t k1_census(const float* __restrict__ img,
+                                              int y, int x, int h, int w) {
+  const float centre = __ldg(img + (size_t)y * w + x);
+  uint32_t bits = 0;
+  int bit = 0;
+#pragma unroll
+  for (int dy = -2; dy <= 2; ++dy) {
+    const float* row = img + (size_t)clampi(y + dy, 0, h - 1) * w;
+#pragma unroll
+    for (int dx = -2; dx <= 2; ++dx) {
+      if (dy == 0 && dx == 0) continue;
+      bits |= (uint32_t)(__ldg(row + clampi(x + dx, 0, w - 1)) < centre) << bit;
+      ++bit;
     }
   }
+  return bits;
+}
+
+// Low 16 bits of (int)s, i.e. (int16_t)(int)s, for 0 <= s < 2^23: adding
+// 2^23 rounded down leaves floor(s) in the low mantissa bits (one add
+// instead of a quarter-rate conversion).
+__device__ __forceinline__ uint32_t k1_low16(float s) {
+  return __float_as_uint(__fadd_rd(s, 8388608.f)) & 0xffffu;
+}
+__device__ __forceinline__ uint32_t k1_low16(int s) {
+  return (uint32_t)s & 0xffffu;
+}
+
+template <typename Acc>
+__device__ __forceinline__ void k1_store(int16_t* p, const Acc (&o)[kK1DispK]) {
+  uint4 q;
+  q.x = k1_low16(o[0]) | (k1_low16(o[1]) << 16);
+  q.y = k1_low16(o[2]) | (k1_low16(o[3]) << 16);
+  q.z = k1_low16(o[4]) | (k1_low16(o[5]) << 16);
+  q.w = k1_low16(o[6]) | (k1_low16(o[7]) << 16);
+  *reinterpret_cast<uint4*>(p) = q;
+}
+
+// Census sums are integers; BT sums are float32, as in the plain version.
+template <int BS, bool CENSUS>
+__global__ void __launch_bounds__(kK1Warps * 32, BS <= 9 ? 2 : 1)
+cost_volume_kernel(const float* __restrict__ left,
+                   const float* __restrict__ right, int16_t* __restrict__ out,
+                   int h, int w, int D, int min_disp, float cap) {
+  using Acc = typename std::conditional<CENSUS, int, float>::type;
+  constexpr int R = BS / 2;
+  constexpr int K = kK1DispK;
+  constexpr int NP = CENSUS ? 1 : 3;  // planes per image
+  constexpr int E = CENSUS ? 0 : 1;   // envelope neighbours
+  constexpr int PL = k1_pitch_l<BS>(), PR = k1_pitch_r<BS>();
+  constexpr int SL = kK1Rows * PL, SR = kK1Rows * PR;  // plane strides
+  extern __shared__ float smem[];
+  float* const lsh = smem;            // NP planes of kK1Rows x PL
+  float* const rsh = smem + NP * SL;  // NP planes of kK1Rows x PR
+  int16_t* const obuf = reinterpret_cast<int16_t*>(rsh + NP * SR);
+
+  const int y0 = blockIdx.y * (kK1Rows - 2 * R);
+  const int x0 = blockIdx.x * kK1TileX;
+  const int dlo = blockIdx.z * kK1DispBlock;
+  const int dhi = min(dlo + kK1DispBlock, D) - 1;
+  const int xlast = min(x0 + kK1TileX, w) - 1;
+  // Columns the clamped taps reach: [xs, xe] on the left image, [rs, re]
+  // on the right; the planes start E columns further left, at lb and rb.
+  const int xs = max(x0 - R, 0), xe = min(xlast + R, w - 1);
+  const int rs = clampi(xs - min_disp - dhi, 0, w - 1);
+  const int re = clampi(xe - min_disp - dlo, 0, w - 1);
+  const int lb = max(xs - E, 0), rb = max(rs - E, 0);
+  const int nl = min(xe + E, w - 1) - lb + 1, nr = min(re + E, w - 1) - rb + 1;
+
+  // Stage 1: plane 0 (prefiltered values or census words) of both images
+  // from the raw images, through L1; plane row k is tap row y0 - r + k,
+  // clamped.
+  for (int i = threadIdx.x; i < kK1Rows * (nl + nr); i += blockDim.x) {
+    const bool rgt = i >= kK1Rows * nl;
+    const int j = rgt ? i - kK1Rows * nl : i;
+    const int n = rgt ? nr : nl;
+    const int k = j / n, c = j - k * n;
+    const int y = clampi(y0 - R + k, 0, h - 1);
+    const float* img = rgt ? right : left;
+    const int x = (rgt ? rb : lb) + c;
+    float* dst = rgt ? rsh + k * PR + c : lsh + k * PL + c;
+    if constexpr (CENSUS) {
+      *dst = __uint_as_float(k1_census(img, y, x, h, w));
+    } else {
+      *dst = k1_prefilter(img, y, x, h, w, cap);
+    }
+  }
+  __syncthreads();
+  // Stage 2 (BT): planes 1 and 2, the envelope min and max, over [xs, xe]
+  // and [rs, re]; the neighbours are clamped into the image.
+  if constexpr (!CENSUS) {
+    const int ml = xe - xs + 1, mr = re - rs + 1;
+    for (int i = threadIdx.x; i < kK1Rows * (ml + mr); i += blockDim.x) {
+      const bool rgt = i >= kK1Rows * ml;
+      const int j = rgt ? i - kK1Rows * ml : i;
+      const int n = rgt ? mr : ml;
+      const int k = j / n;
+      const int x = (rgt ? rs : xs) + (j - k * n);
+      const int stride = rgt ? SR : SL;
+      float* p = rgt ? rsh : lsh;
+      const int o = rgt ? k * PR - rb : k * PL - lb;  // + image column
+      const float v = p[o + x];
+      const float hl = floorf(__fmul_rn(0.5f, __fadd_rn(v, p[o + max(x - 1, 0)])));
+      const float hr = floorf(__fmul_rn(0.5f, __fadd_rn(v, p[o + min(x + 1, w - 1)])));
+      p[stride + o + x] = fminf(v, fminf(hl, hr));
+      p[2 * stride + o + x] = fmaxf(v, fmaxf(hl, hr));
+    }
+    __syncthreads();
+  }
+
+  // Every warp runs the loop, since the output goes out through barriers;
+  // a warp past the last disparity repeats the last group, and its
+  // results are not copied out.
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int d0 = min(dlo + warp * K, dhi - K + 1);
+  const int lo = lane * PL - lb, ro = lane * PR - rb;  // + image column
+
+  // Right planes at clamp(xc - min_disp - d0 - k): what disparity d0 + k
+  // matches at the current tap column xc. Moving to xc + 1 shifts them by
+  // one and reads one new column.
+  float wv[K], wlo[K], whi[K];
+  auto load_right = [&](int k, int xc) {
+    const int c = ro + clampi(xc - min_disp - d0 - k, 0, w - 1);
+    wv[k] = rsh[c];
+    if constexpr (!CENSUS) {
+      wlo[k] = rsh[SR + c];
+      whi[k] = rsh[2 * SR + c];
+    }
+  };
+  auto shift_in = [&](int xc) {
+#pragma unroll
+    for (int k = K - 1; k > 0; --k) {
+      wv[k] = wv[k - 1];
+      if constexpr (!CENSUS) {
+        wlo[k] = wlo[k - 1];
+        whi[k] = whi[k - 1];
+      }
+    }
+    load_right(0, xc);
+  };
+  // Column sums at tap column xc: the pixel costs of the 8 disparities,
+  // added over the tap rows top to bottom, the upper ones from the lanes
+  // above (lanes < 2r get their own values back and store nothing).
+  Acc cs[K];
+  auto column = [&](int xc) {
+    Acc pc[K];
+    if constexpr (CENSUS) {
+      const uint32_t u = __float_as_uint(lsh[lo + xc]);
+#pragma unroll
+      for (int k = 0; k < K; ++k) pc[k] = __popc(u ^ __float_as_uint(wv[k]));
+    } else {
+      const float u = lsh[lo + xc], u0 = lsh[lo + SL + xc],
+                  u1 = lsh[lo + 2 * SL + xc];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float c0 = fmaxf(fmaxf(u - whi[k], wlo[k] - u), 0.f);
+        const float c1 = fmaxf(fmaxf(wv[k] - u1, u0 - wv[k]), 0.f);
+        pc[k] = fminf(c0, c1);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      Acc s = pc[k];
+      if constexpr (BS > 1) {
+        s = __shfl_up_sync(kFull, pc[k], 2 * R);
+#pragma unroll
+        for (int j = 2 * R - 1; j >= 1; --j) s += __shfl_up_sync(kFull, pc[k], j);
+        s += pc[k];
+      }
+      cs[k] = s;
+    }
+  };
+  // Copy out the staged output columns x - n + 1 .. x: each (column, row)
+  // is 64 disparities, 128 contiguous bytes, written by 8 threads with one
+  // 16-byte store each, so a warp writes 4 whole 128-byte lines.
+  auto flush = [&](int x, int n) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < n * kK1Rows * 8; i += blockDim.x) {
+      const int q = i & 7, row = (i >> 3) & (kK1Rows - 1), slot = i >> 8;
+      const int y = y0 + row - 2 * R, d = dlo + q * K;
+      if (row >= 2 * R && y < h && d <= dhi) {
+        const size_t at = ((size_t)y * w + (x - n + 1 + slot)) * D + d;
+        *reinterpret_cast<uint4*>(out + at) = *reinterpret_cast<const uint4*>(
+            obuf + (slot * kK1Rows + row) * kK1OutPitch + q * K);
+      }
+    }
+    __syncthreads();
+  };
+  // open[j][k]: the window whose first tap column is j columns back. Each
+  // column sum completes the oldest window, whose output column t - r is
+  // staged, and is added to the others. Zeroed, because the first feeds
+  // add into windows that are never stored: left uninitialised, that read
+  // is undefined, and at block sizes 1 and 3 it cost the first columns.
+  Acc open[BS > 1 ? BS - 1 : 1][K] = {};
+  int t = x0 - R;  // tap column (before clamping) of the next column sum
+  auto feed = [&]() {
+    if (t >= x0 + R) {  // block-uniform
+      const int x = t - R, slot = (x - x0) % kK1Slots;
+      Acc o[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) o[k] = BS > 1 ? open[BS > 1 ? BS - 2 : 0][k] + cs[k] : cs[k];
+      k1_store(obuf + (slot * kK1Rows + lane) * kK1OutPitch + warp * K, o);
+      if (slot == kK1Slots - 1 || x == xlast) flush(x, slot + 1);
+    }
+#pragma unroll
+    for (int j = BS - 2; j >= 1; --j) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) open[j][k] = open[j - 1][k] + cs[k];
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) open[0][k] = cs[k];
+    ++t;
+  };
+
+  // A column clamped at the image edge stands for every tap beyond it: the
+  // first is fed once more per tap left of column 0, the last once more
+  // per tap right of column w - 1.
+#pragma unroll
+  for (int k = 0; k < K; ++k) load_right(k, xs);
+  column(xs);
+  for (int n = xs - (x0 - R); n >= 0; --n) feed();
+  for (int xc = xs + 1; xc <= xe; ++xc) {
+    shift_in(xc);
+    column(xc);
+    feed();
+  }
+  for (int n = xlast + R - xe; n > 0; --n) feed();
 }
 
 // ---------------------------------------------------------------------------
@@ -420,47 +630,68 @@ void rowsweep_launch(const int16_t* cost, const void* acc, int acc_int32,
   }
 }
 
-template <bool CENSUS>
-int cost_volume_launch(const void* const* planes, int16_t* out, int h, int w,
-                       int D, int min_disp, int bs, cudaStream_t stream) {
-  using PC = PixelCost<CENSUS>;
-  using T = typename PC::T;
-  const int threads = (D + 31) / 32 * 32;
-  const int r = bs / 2;
-  const size_t smem =
-      sizeof(T) * PC::kPlanes * bs * ((kTileX + 2 * r) + (kTileX + 2 * r + D - 1)) +
-      sizeof(float) * bs * threads;
+template <int BS, bool CENSUS>
+int cost_volume_launch(const float* left, const float* right, int16_t* out,
+                       int h, int w, int D, int min_disp, int cap,
+                       cudaStream_t stream) {
+  constexpr int rows_out = kK1Rows - 2 * (BS / 2);
+  const size_t smem = sizeof(float) * (CENSUS ? 1 : 3) * kK1Rows *
+                         (k1_pitch_l<BS>() + k1_pitch_r<BS>()) +
+                     kK1OutBytes;
+  const dim3 grid((w + kK1TileX - 1) / kK1TileX,
+                  (h + rows_out - 1) / rows_out,
+                  (D + kK1DispBlock - 1) / kK1DispBlock);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(&cost_volume_kernel<CENSUS>),
+        reinterpret_cast<const void*>(&cost_volume_kernel<BS, CENSUS>),
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const T* p[6];
-  for (int i = 0; i < 6; ++i) p[i] = static_cast<const T*>(planes[i]);
-  const dim3 grid((w + kTileX - 1) / kTileX, h);
-  cost_volume_kernel<CENSUS><<<grid, threads, smem, stream>>>(
-      p[0], p[1], p[2], p[3], p[4], p[5], out, h, w, D, min_disp, bs);
+  cost_volume_kernel<BS, CENSUS><<<grid, kK1Warps * 32, smem, stream>>>(
+      left, right, out, h, w, D, min_disp, (float)cap);
   return (int)cudaGetLastError();
+}
+
+// Takes D a multiple of 16 up to 256, min_disp >= 0, an odd block_size up
+// to 17 (the largest kernels_supported admits) and a 16-byte aligned out.
+template <bool CENSUS>
+int cost_volume_dispatch(const float* left, const float* right, int16_t* out,
+                         int h, int w, int D, int min_disp, int bs, int cap,
+                         cudaStream_t stream) {
+  if (h < 1 || w < 1 || D < 16 || D > 256 || D % 16 != 0 || min_disp < 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  switch (bs) {
+#define K1_CASE(B) \
+  case B:          \
+    return cost_volume_launch<B, CENSUS>(left, right, out, h, w, D, min_disp, cap, stream);
+    K1_CASE(1) K1_CASE(3) K1_CASE(5) K1_CASE(7) K1_CASE(9)
+    K1_CASE(11) K1_CASE(13) K1_CASE(15) K1_CASE(17)
+#undef K1_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-int sgm_cost_volume(const float* pl, const float* pu0, const float* pu1,
-                    const float* pr, const float* pv0, const float* pv1,
-                    int16_t* out, int h, int w, int D, int min_disp, int bs,
+// K1 from the (h, w) float32 pair: BT with the x-Sobel prefilter clipped
+// to +-cap, or census; out is (h, w, D) int16.
+int sgm_cost_volume(const float* left, const float* right, int16_t* out,
+                    int h, int w, int D, int min_disp, int bs, int cap,
                     cudaStream_t stream) {
-  const void* planes[6] = {pl, pu0, pu1, pr, pv0, pv1};
-  return cost_volume_launch<false>(planes, out, h, w, D, min_disp, bs, stream);
+  return cost_volume_dispatch<false>(left, right, out, h, w, D, min_disp, bs,
+                                     cap, stream);
 }
 
-int sgm_census_cost_volume(const int32_t* cl, const int32_t* cr, int16_t* out,
-                           int h, int w, int D, int min_disp, int bs,
-                           cudaStream_t stream) {
-  const void* planes[6] = {cl, nullptr, nullptr, cr, nullptr, nullptr};
-  return cost_volume_launch<true>(planes, out, h, w, D, min_disp, bs, stream);
+int sgm_census_cost_volume(const float* left, const float* right,
+                           int16_t* out, int h, int w, int D, int min_disp,
+                           int bs, cudaStream_t stream) {
+  return cost_volume_dispatch<true>(left, right, out, h, w, D, min_disp, bs,
+                                    0, stream);
 }
 
 int sgm_hscan(const int16_t* cost, const int16_t* lin, void* out,

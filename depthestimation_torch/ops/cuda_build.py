@@ -32,7 +32,7 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures (csrc/*.cu); every function returns cudaError_t.
 _SIGNATURES = {
-    "sgm_cost_volume": [_P] * 7 + [_I] * 5 + [_P],
+    "sgm_cost_volume": [_P] * 3 + [_I] * 6 + [_P],
     "sgm_census_cost_volume": [_P] * 3 + [_I] * 5 + [_P],
     "sgm_hscan": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "sgm_rowsweep": [_P, _P, _I, _P, _I] + [_I] * 7 + [_P],

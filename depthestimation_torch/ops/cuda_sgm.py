@@ -132,31 +132,28 @@ def cost_volume_plain(left, right, cfg) -> torch.Tensor:
 def cost_volume(left: torch.Tensor, right: torch.Tensor, cfg) -> torch.Tensor:
     """K1: (H, W) float32 grayscale pair -> int16 (H, W, D) cost volume.
 
-    The kernel's inputs are plain torch ops, as they are XLA ops around
-    the TPU kernel (pallas_sgm.py:369-383): for BT the prefilter and its
-    min/max envelopes, for census the packed census words."""
+    One launch from the pair itself: the kernel computes the BT prefilter
+    and its min/max envelopes, or the census words, in shared memory (the
+    XLA ops around the TPU kernel, pallas_sgm.py:369-383), so no torch op
+    runs before it."""
     if not _on_card(left):
         return cost_volume_plain(left, right, cfg)
     h, w = left.shape
     for t, what in ((left, "left"), (right, "right")):
         _check(t, what, torch.float32, (h, w), left.device)
     out = torch.empty((h, w, cfg.num_disp), dtype=torch.int16, device=left.device)
+    lib = load_library()
     if cfg.cost == "census":
-        cl = costs.census_transform(left)
-        cr = costs.census_transform(right)
-        _launched("cost_volume_census", load_library().sgm_census_cost_volume(
-            cl.data_ptr(), cr.data_ptr(), out.data_ptr(),
+        _launched("cost_volume_census", lib.sgm_census_cost_volume(
+            left.data_ptr(), right.data_ptr(), out.data_ptr(),
             h, w, cfg.num_disp, cfg.min_disp, cfg.block_size, _stream(),
         ))
-        return out
-    pl_ = costs.xsobel_prefilter(left, cfg.prefilter_cap)
-    pr = costs.xsobel_prefilter(right, cfg.prefilter_cap)
-    planes = [pl_, *costs.half_sample_envelope(pl_),
-              pr, *costs.half_sample_envelope(pr)]
-    _launched("cost_volume", load_library().sgm_cost_volume(
-        *(p.data_ptr() for p in planes), out.data_ptr(),
-        h, w, cfg.num_disp, cfg.min_disp, cfg.block_size, _stream(),
-    ))
+    else:
+        _launched("cost_volume", lib.sgm_cost_volume(
+            left.data_ptr(), right.data_ptr(), out.data_ptr(),
+            h, w, cfg.num_disp, cfg.min_disp, cfg.block_size,
+            cfg.prefilter_cap, _stream(),
+        ))
     return out
 
 

@@ -18,7 +18,11 @@ from depthestimation_torch.ops import cuda_sgm, filters, remap
 pytestmark = pytest.mark.cuda
 
 # (h, w, config): several D per lane (1, 2, 4, 8), min_disp, a partial
-# last K1 tile, block sizes 3 to 13 and every int16/int32 storage combination.
+# last K1 tile, block sizes 1 to 17 and every int16/int32 storage
+# combination. K1 edge geometry: a block covers 32 - 2r rows (28 at block
+# size 5, 32 at 1), 64 columns and 64 disparities, so the cases below also
+# take H under one strip and one row past it, W under one tile, and D of
+# 16 (one d-block, 2 of its 8 warps busy) and 256 (four d-blocks).
 CASES = [
     (24, 100, dict(num_disp=16)),
     (37, 150, dict(num_disp=48, min_disp=3)),
@@ -28,6 +32,13 @@ CASES = [
     (30, 190, dict(num_disp=64, block_size=11)),
     (30, 190, dict(num_disp=64, block_size=7, prefilter_cap=100)),
     (30, 190, dict(num_disp=64, block_size=13, prefilter_cap=1)),
+    (5, 90, dict(num_disp=16)),
+    (29, 140, dict(num_disp=32, min_disp=5)),
+    (33, 90, dict(num_disp=16, block_size=1)),
+    (12, 50, dict(num_disp=16, block_size=3)),
+    (9, 300, dict(num_disp=256, block_size=1, min_disp=2)),
+    (20, 130, dict(num_disp=80, block_size=15, prefilter_cap=1)),
+    (17, 70, dict(num_disp=16, block_size=17, prefilter_cap=1)),
 ]
 
 
@@ -114,7 +125,9 @@ def test_rowsweep_variants_match_plain(card, h, w, kw, dxs, reverse):
                                                  out_dtype))
 
 
-@pytest.mark.parametrize("h,w", [(24, 100), (37, 150), (64, 300), (5, 700)])
+# w % 4 != 0 (13x103, 7x129, 9x6) takes the kernel's scalar form.
+@pytest.mark.parametrize("h,w", [(24, 100), (37, 150), (64, 300), (5, 700),
+                                 (13, 103), (7, 129), (9, 6)])
 def test_remap_matches_plain(card, h, w):
     rng = np.random.default_rng(h + w)
     img = torch.tensor(rng.uniform(0, 255, (2, h, w)).astype(np.float32), device=card)
@@ -131,6 +144,15 @@ def test_remap_matches_plain(card, h, w):
     assert torch.equal(got, want), (got - want).abs().max()
     assert torch.equal(got.cpu(), remap.remap_bilinear(img.cpu(), mx.cpu(), my.cpu()))
     assert (got[1] == 0).all()
+    # N = 1, as (H, W) and as (1, H, W).
+    for one in (img[0], img[:1]):
+        got = remap.remap_bilinear(one, mx[0].reshape(one.shape), my[0].reshape(one.shape))
+        assert torch.equal(got.reshape(h, w), want[0])
+    # A map 4 bytes past a 16-byte boundary takes the scalar form.
+    buf = torch.zeros(h * w + 1, device=card)
+    buf[1:] = mx[0].flatten()
+    got = remap.remap_bilinear(img[0], buf[1:].view(h, w), my[0])
+    assert torch.equal(got, want[0])
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(sgbm_mode="hh4"),
@@ -181,3 +203,7 @@ def test_wrapper_checks(card):
     img = torch.zeros((8, 64), device=card)
     with pytest.raises(ValueError, match="shape"):
         remap.remap_bilinear(img, img, torch.zeros((8, 63), device=card))
+    # Shapes K1 does not take are refused by the kernel, not computed.
+    for kw in (dict(num_disp=272), dict(block_size=19, prefilter_cap=1)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            cuda_sgm.cost_volume(img, img, SGMConfig(**kw))

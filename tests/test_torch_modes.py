@@ -73,6 +73,21 @@ def test_census_cost_volume_exact(block_size, min_disp):
         np.asarray(jcosts._census_transform(jnp.asarray(left))))
 
 
+# K1's census edge geometry: blocks 3 and 7, 2-11 rows, widths that are
+# not multiples of 32, min_disp > 0.
+@pytest.mark.parametrize("h,w,min_disp,block_size",
+                         [(3, 45, 0, 3), (11, 70, 3, 7), (2, 37, 1, 7)])
+def test_census_cost_volume_edges_exact(h, w, min_disp, block_size):
+    left, right = textured_pair(h, w, SHIFT, seed=h + w)
+    cfg = config.SGMConfig(num_disp=16, min_disp=min_disp, cost="census",
+                           block_size=block_size)
+    want = np.asarray(jcosts.census_cost_volume(
+        jnp.asarray(left), jnp.asarray(right), 16, min_disp, block_size))
+    got = cuda_sgm.cost_volume_plain(t(left), t(right), cfg)
+    assert got.dtype == torch.int16
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int16))
+
+
 def test_census_raw_disparity_exact():
     left, right = textured_pair(H, W, SHIFT, seed=13)
     cfg = config.SGMConfig(num_disp=D, cost="census", speckle_window_size=0)

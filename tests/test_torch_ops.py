@@ -6,11 +6,14 @@ grid, median, speckle mask) must be bit-exact; float stages carry a
 tolerance stated with its reason.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from depthestimation_tpu import config as jconfig
 from depthestimation_tpu.ops import color as jcolor
 from depthestimation_tpu.ops import costs as jcosts
 from depthestimation_tpu.ops import depth as jdepth
@@ -18,7 +21,9 @@ from depthestimation_tpu.ops import filters as jfilters
 from depthestimation_tpu.ops import sgm as jsgm
 from depthestimation_tpu.ops import wls as jwls
 from depthestimation_tpu.ops import wta as jwta
-from depthestimation_torch.ops import color, costs, depth, filters, sgm, wls, wta
+from depthestimation_torch import config
+from depthestimation_torch.ops import (color, costs, cuda_sgm, depth, filters,
+                                       sgm, wls, wta)
 
 
 def make_pair(h, w, d_true=5, seed=0):
@@ -60,6 +65,60 @@ def test_bt_cost_volume_exact(min_disp):
                                             32, min_disp, 5, 31))
     got = costs.bt_cost_volume(t(left), t(right), 32, min_disp, 5, 31).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+# The geometry K1 is held to on the card: block sizes 1 to 11, caps 1 and
+# 63, min_disp > 0, images of 1-3 rows and widths that are not multiples
+# of 32, so every tap clamps at some edge.
+@pytest.mark.parametrize(
+    "h,w,num_disp,min_disp,block_size,cap",
+    [(1, 45, 16, 0, 1, 31), (2, 70, 16, 3, 3, 1), (3, 33, 32, 0, 7, 63),
+     (9, 50, 16, 5, 11, 63), (13, 97, 48, 2, 5, 1), (20, 75, 32, 0, 3, 63)],
+)
+def test_cost_volume_plain_edges_exact(h, w, num_disp, min_disp, block_size, cap):
+    left, right = make_pair(h, w, seed=h + w)
+    jcfg = jconfig.SGMConfig(num_disp=num_disp, min_disp=min_disp,
+                             block_size=block_size, prefilter_cap=cap)
+    cfg = config.config_from_dict(dataclasses.asdict(jcfg))
+    want = np.asarray(jcosts.cost_volume(jnp.asarray(left), jnp.asarray(right), jcfg))
+    got = cuda_sgm.cost_volume_plain(t(left), t(right), cfg)
+    assert got.dtype == torch.int16
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int16))
+
+
+def test_cost_volume_plain_fractional():
+    """A smoothed (fractional) pair, like a rectified one: the pixel costs
+    equal JAX's bit for bit, and the window adds them in _block_sum's
+    order (rows top to bottom, then columns left to right, float32), which
+    the kernel keeps. JAX's XLA reduce_window adds in another order, so
+    a few int16 cells truncate the other way (ROADMAP Queue 3)."""
+    h, w, d, min_disp = 24, 90, 32, 2
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, 255, (h, w + 7)).astype(np.float32)
+    base = ((base + np.roll(base, 1, 0) * 0.7 + np.roll(base, 1, 1) * 0.3)
+            / 2.1).astype(np.float32)
+    left, right = base[:, :w].copy(), base[:, 7:].copy()
+    jcfg = jconfig.SGMConfig(num_disp=d, min_disp=min_disp)
+    cfg = config.config_from_dict(dataclasses.asdict(jcfg))
+    pc = np.asarray(jcosts.bt_cost_volume(jnp.asarray(left), jnp.asarray(right),
+                                          d, min_disp, 1, cfg.prefilter_cap))
+    np.testing.assert_array_equal(costs.bt_cost_volume(
+        t(left), t(right), d, min_disp, 1, cfg.prefilter_cap).numpy(), pc)
+    bs, r = cfg.block_size, cfg.block_size // 2
+    ys = np.clip(np.arange(-r, h + r), 0, h - 1)
+    xs = np.clip(np.arange(-r, w + r), 0, w - 1)
+    rows = pc[ys[0:h]]
+    for k in range(1, bs):
+        rows = rows + pc[ys[k:k + h]]
+    rows = rows[:, xs]
+    ref = rows[:, 0:w]
+    for k in range(1, bs):
+        ref = ref + rows[:, k:k + w]
+    got = cuda_sgm.cost_volume_plain(t(left), t(right), cfg).numpy()
+    np.testing.assert_array_equal(got, ref.astype(np.int16))
+    want = np.asarray(jcosts.cost_volume(jnp.asarray(left), jnp.asarray(right), jcfg))
+    np.testing.assert_allclose(ref, want, rtol=0, atol=1e-3)
+    assert (got == want.astype(np.int16)).mean() >= 0.995
 
 
 @pytest.mark.parametrize("num_paths", [2, 3])

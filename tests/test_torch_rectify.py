@@ -131,6 +131,37 @@ def test_remap_matches_jax():
     assert cuda_sgm.LAUNCHES["remap"] == 0  # plain version on the CPU
 
 
+def test_remap_border_rules_match_jax():
+    """Every pair of 16 coordinates per axis on a 16x16 image: exactly 0
+    and n-1, just below 0, just past n-1 (by 1e-3 and by one float step),
+    -1 and n, integers and halves. Held to both JAX routes (the banded sum
+    for host maps, the gather for traced ones) at the remap's 1e-4; exact
+    where both coordinates are integers (weights 0 and 1); exactly 0 where
+    both taps of an axis leave the image."""
+    n = 16
+    eps = np.float32(1e-3)
+    last = np.float32(n - 1)
+    vals = np.array([0, last, -eps, last + eps,
+                     np.nextafter(np.float32(0), np.float32(-1)),
+                     np.nextafter(last, np.float32(n)), -1, n, 3, 7.5, 0.25,
+                     n - 2.5, -1 + eps, n - eps, 14, -2.5], np.float32)
+    map_x, map_y = np.meshgrid(vals, vals)
+    img = np.random.default_rng(3).uniform(0, 255, (n, n)).astype(np.float32)
+    got = remap.remap_bilinear_plain(torch.tensor(img), torch.tensor(map_x),
+                                     torch.tensor(map_y)).numpy()
+    for want in (jremap.remap_bilinear(jnp.asarray(img), map_x, map_y),
+                 jremap._remap_gather(jnp.asarray(img), jnp.asarray(map_x),
+                                      jnp.asarray(map_y))):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+        whole = (map_x == np.round(map_x)) & (map_y == np.round(map_y))
+        np.testing.assert_array_equal(got[whole], want[whole])
+    outside = (map_x >= n) | (map_x < -1) | (map_y >= n) | (map_y < -1)
+    assert outside.any() and (got[outside] == 0).all()
+    inside = (map_x >= 0) & (map_x <= last) & (map_y >= 0) & (map_y <= last)
+    assert (got[inside] > 0).all()
+
+
 @pytest.mark.parametrize("out_hw", [(96, 300), (31, 47), (48, 120)])
 def test_resize_bilinear_matches_jax(out_hw):
     rng = np.random.default_rng(1)
