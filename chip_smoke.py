@@ -16,9 +16,10 @@ Phases (any failure exits non-zero and prints no result):
      pair through the mild rig's maps, beside torch's grid_sample as a
      yardstick;
   3. end to end through StereoDepthEstimator(device="cuda").estimate_
-     depth(), each path driven with the kernel launch counts set to 0 just
-     before and read just after; a pair must launch exactly the kernels
-     of its path, each as often as the path composes it:
+     depth(), each path driven with the wrapper call and kernel launch
+     counts set to 0 just before and read just after; a pair must call
+     and launch exactly the kernels of its path, each as often as the
+     path composes it:
      a. default: a seeded 1080x1920 RGB texture pair with a known 20 px
         shift; kernel-composed raw disparity against the plain-composed
         one on the card; the known shift on >= 95 % of pixels; the card
@@ -32,8 +33,9 @@ Phases (any failure exits non-zero and prints no result):
         against the CPU on a small calibrated pair; ms per pair;
      c. hh (8 paths) and census (sgbm_3way) with the north-star flags:
         the known shift and ms per pair;
-  4. one JSON line {"kernels": [...]} with launches per pair, times and
-     bounds;
+  4. one JSON line {"kernels": [...]}: per kernel the wrapper calls and
+     kernel launches counted in phase 3 in one pair of the path named, ms
+     per call, its bound, and the loss per pair, calls x (ms - bound_ms);
   5. the card's name and power limit, then the last line
      {"ok": true, "device": {...}}.
 
@@ -206,21 +208,23 @@ def hold_exact(name, got, want, errs):
         raise AssertionError(f"{name} disagrees with its plain version")
 
 
-def drive(est, launches_of, path, expected):
-    """One estimate_depth() with the launch counts set to 0 just before and
-    read just after. Fails unless the pair launched exactly the kernels in
-    `expected` ({name: launches}) and no other; returns (disparity, depth)."""
+def drive(est, counts_of, path, expected):
+    """One estimate_depth() with the wrapper call and launch counts set to
+    0 just before and read just after. Fails unless the pair called and
+    launched exactly the kernels in `expected` ({name: (calls, launches)})
+    and no other; returns (disparity, depth)."""
     from depthestimation_torch.ops import cuda_sgm
 
     cuda_sgm.reset_launches()
     out = est.estimate_depth()
     torch.cuda.synchronize()
-    counts = {k: v for k, v in cuda_sgm.LAUNCHES.items() if v}
-    log(f"[3{path[0]}] launches in one {path} pair: {counts}")
+    counts = {k: (cuda_sgm.CALLS[k], n)
+              for k, n in cuda_sgm.LAUNCHES.items() if n or cuda_sgm.CALLS[k]}
+    log(f"[3{path[0]}] (calls, launches) in one {path} pair: {counts}")
     if counts != expected:
-        raise AssertionError(f"the {path} path launched {counts}, "
-                             f"expected {expected}")
-    launches_of[path] = counts
+        raise AssertionError(f"the {path} path made (calls, launches) "
+                             f"{counts}, expected {expected}")
+    counts_of[path] = counts
     return out
 
 
@@ -229,6 +233,25 @@ def check_output(disp, depth, shape, tag):
         raise AssertionError(f"{tag}: output shapes {disp.shape}, {depth.shape}")
     if not np.isfinite(disp).all():
         raise AssertionError(f"{tag}: non-finite disparity")
+
+
+def k3_passes(c, swe, cfg, cfg4, cfg8):
+    """K3's four passes on the inputs each mode gives them, as
+    {name: (acc, cfg, dxs, reverse, out_dtype)}: sgbm_3way's downward pass,
+    hh4's upward pass, and hh's diagonal passes down and up (the storage
+    types of each mode)."""
+    from depthestimation_torch.ops import cuda_sgm
+
+    acc4, acc8 = cuda_sgm._acc_dtype(cfg4), cuda_sgm._acc_dtype(cfg8)
+    return {
+        "rowsweep": (swe, cfg, (0,), False, cuda_sgm._final_dtype(cfg)),
+        "rowsweep_up": (cuda_sgm.rowsweep(c, swe, cfg4, (0,), False, acc4),
+                        cfg4, (0,), True, cuda_sgm._final_dtype(cfg4)),
+        "rowsweep_diag": (swe, cfg8, (0, 1, -1), False, acc8),
+        "rowsweep_diag_up": (
+            cuda_sgm.rowsweep(c, swe, cfg8, (0, 1, -1), False, acc8),
+            cfg8, (0, -1, 1), True, cuda_sgm._final_dtype(cfg8)),
+    }
 
 
 def main() -> int:
@@ -289,17 +312,7 @@ def main() -> int:
     swe = cuda_sgm.hscan(c, cfg)
     hold_exact("hscan", swe, cuda_sgm.hscan_plain(c, cfg), errs)
 
-    # K3 on the inputs each mode gives it: (acc, cfg, dxs, reverse, dtype).
-    k3 = {
-        "rowsweep": (swe, cfg, (0,), False, cuda_sgm._final_dtype(cfg)),
-        "rowsweep_up": (cuda_sgm.rowsweep(c, swe, cfg4, (0,), False,
-                                          cuda_sgm._acc_dtype(cfg4)),
-                        cfg4, (0,), True, cuda_sgm._final_dtype(cfg4)),
-        "rowsweep_diag": (swe, cfg8, (0, 1, -1), False, cuda_sgm._acc_dtype(cfg8)),
-    }
-    k3["rowsweep_diag_up"] = (
-        cuda_sgm.rowsweep(c, swe, cfg8, (0, 1, -1), False, cuda_sgm._acc_dtype(cfg8)),
-        cfg8, (0, -1, 1), True, cuda_sgm._final_dtype(cfg8))
+    k3 = k3_passes(c, swe, cfg, cfg4, cfg8)
     k3_out = {}
     for name, (acc, kcfg, dxs, rev, dt) in k3.items():
         k3_out[name] = cuda_sgm.rowsweep(c, acc, kcfg, dxs, rev, dt)
@@ -359,12 +372,13 @@ def main() -> int:
     del k3, k3_out, cc
 
     # ---- 3a. default path through the user's entry point ----
-    launches_of = {}
+    counts_of = {}
     est = StereoDepthEstimator(device="cuda")
     est.left_source, est.right_source = left_rgb, right_rgb
     est.configure_sgbm(num_disp=D, focal_length=1000.0, baseline=0.1)
-    disp, depth = drive(est, launches_of, "a default",
-                        {"cost_volume": 1, "hscan": 2, "rowsweep": 1})
+    disp, depth = drive(est, counts_of, "a default",
+                        {"cost_volume": (1, 1), "hscan": (1, 2),
+                         "rowsweep": (1, 1)})
     check_output(disp, depth, (H, W - D), "default")
     hit = float((np.abs(disp - SHIFT) <= 1.0).mean())
     log(f"[3a] known {SHIFT} px shift recovered on {hit:.4%} of pixels; "
@@ -428,9 +442,10 @@ def main() -> int:
     rest.left_source, rest.right_source = raw_l, raw_r
     rest.configure_sgbm(**rig)
     rest.core.fast_mode = True
-    disp, depth = drive(rest, launches_of, "b rectified",
-                        {"remap": 1, "cost_volume": 1, "hscan": 2,
-                         "rowsweep": 1, "rowsweep_up": 1})
+    disp, depth = drive(rest, counts_of, "b rectified",
+                        {"remap": (1, 1), "cost_volume": (1, 1),
+                         "hscan": (1, 2), "rowsweep": (1, 1),
+                         "rowsweep_up": (1, 1)})
     check_output(disp, depth, (H, W - D), "rectified")
     both = seen_by_both(maps_x, maps_y, SHIFT, D)
     hit = float((np.abs(disp - SHIFT) <= 1.0)[both].mean())
@@ -470,16 +485,17 @@ def main() -> int:
     # ---- 3c. hh (8 paths) and census, north-star flags ----
     for path, kw, expected in (
             ("c hh", dict(sgbm_mode="hh"),
-             {"cost_volume": 1, "hscan": 2, "rowsweep_diag": 3,
-              "rowsweep_diag_up": 3}),
+             {"cost_volume": (1, 1), "hscan": (1, 2),
+              "rowsweep_diag": (1, 3), "rowsweep_diag_up": (1, 3)}),
             ("c census", dict(cost="census"),
-             {"cost_volume_census": 1, "hscan": 2, "rowsweep": 1})):
+             {"cost_volume_census": (1, 1), "hscan": (1, 2),
+              "rowsweep": (1, 1)})):
         e = StereoDepthEstimator(device="cuda")
         e.left_source, e.right_source = left_rgb, right_rgb
         e.configure_sgbm(num_disp=D, focal_length=1000.0, baseline=0.1,
                          **NORTH_STAR, **kw)
         e.core.fast_mode = True
-        disp, depth = drive(e, launches_of, path, expected)
+        disp, depth = drive(e, counts_of, path, expected)
         check_output(disp, depth, (H, W - D), path)
         hit = float((np.abs(disp - SHIFT) <= 1.0).mean())
         log(f"[3c] {path}: known shift on {hit:.4%} of pixels")
@@ -490,9 +506,12 @@ def main() -> int:
         f"{k} {v:.2f}" for k, v in e2e.items()))
 
     # ---- 4. kernels line ----
+    # `calls` and `launches` are the counts of one pair of the path named,
+    # read in phase 3; ms is per wrapper call, so a kernel's loss per pair
+    # is calls x (ms - bound_ms).
     sgm_src = "depthestimation_torch/csrc/sgm_kernels.cu"
     kernel_rows = [
-        # name, source, replaces, path whose pair counts its launches
+        # name, source, replaces, path whose pair counts its calls/launches
         ("cost_volume", sgm_src, "depthestimation_tpu/ops/pallas_sgm.py:188", "a default"),
         ("cost_volume_census", sgm_src, "depthestimation_tpu/ops/pallas_sgm.py:188",
          "c census"),
@@ -508,18 +527,20 @@ def main() -> int:
     ]
     kernels = []
     for name, source, replaces, path in kernel_rows:
+        calls, launches = counts_of[path].get(name, (0, 0))
         nbytes, nops = work[name]
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / OPS_PER_S * 1e3
         row = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "path": path.split()[1],
-            "launches": launches_of[path].get(name, 0),
+            "replaces": replaces, "path": path.split()[1], "calls": calls,
+            "launches": launches,
             "max_abs_err": errs[name], "exact": errs[name] == 0,
             "ms": ms[name], "plain_ms": plain_ms[name],
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library.get(name),
         }
+        row["loss_ms"] = row["calls"] * (row["ms"] - row["bound_ms"])
         if name == "cost_volume":
             row["max_abs_err_fractional"] = errs["cost_volume_fractional"]
         kernels.append(row)

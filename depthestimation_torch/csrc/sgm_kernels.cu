@@ -360,11 +360,57 @@ cost_volume_kernel(const float* __restrict__ left,
 
 // ---------------------------------------------------------------------------
 // Shared by K2 and K3: one warp owns one scanline; lane l holds the K
-// contiguous disparities [l*K, l*K + K), so a step's loads and stores are
-// one contiguous D-long run per warp. Lanes with l*K >= D are idle and
-// hold kBig (D is a multiple of 16 and K divides 16, so no lane straddles
-// D).
+// contiguous disparities [l*K, l*K + K), so a step reads and writes one
+// contiguous D-long run per operand. Lanes with l*K >= D are idle and hold
+// kBig (D is a multiple of 16 and K divides 16, so no lane straddles D).
+//
+// Loads go through a ring of kRing stages per warp in shared memory, filled
+// by 16-byte cp.async copies that all lanes issue: while the warp scans one
+// stage, the next kRing - 1 are in flight. A stage is a fixed number of
+// scan steps, 32/K columns for K2 and 16/K pixels for K3, i.e. 2 KB of
+// int16 per operand at the largest D of that K (K2: 8 columns at D = 128).
+// So a warp keeps ~6 KB of loads per operand in flight; the scan reads each
+// step's K values a lane from shared memory. Stores go straight out, one contiguous run of
+// D values per warp and step.
 // ---------------------------------------------------------------------------
+
+constexpr int kScanWarps = 4;  // scanlines (warps) per block
+constexpr int kRing = 4;       // ring stages per warp
+
+// Scan steps per ring stage: K2 32/K columns, K3 16/K pixels.
+template <int K>
+__host__ __device__ constexpr int hscan_stage() {
+  return 32 / K;
+}
+template <int K>
+__host__ __device__ constexpr int rowsweep_stage() {
+  return 16 / K;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until the stage committed kRing - 1 groups ago has landed; the
+// __syncwarp then makes every lane's copies visible to the whole warp.
+__device__ __forceinline__ void ring_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kRing - 1) : "memory");
+  __syncwarp();
+}
+
+// The warp copies n bytes (a multiple of 16, both ends 16-byte aligned).
+__device__ __forceinline__ void warp_copy(void* dst, const void* src, int n,
+                                          int lane) {
+  for (int o = lane * 16; o < n; o += 32 * 16)
+    cp_async16(static_cast<char*>(dst) + o, static_cast<const char*>(src) + o);
+}
 
 template <typename T, int K>
 struct alignas(sizeof(T) * K) Vec {
@@ -426,59 +472,76 @@ __device__ __forceinline__ void sgm_step(int (&l)[K], const int (&c)[K],
 // start = fresh path start, as in ops/sgm.py.
 //
 // Bound: bytes -- forward reads C and writes L (2 volumes), backward reads
-// C and L and writes S_we (3 volumes). Design: one warp per row, the x
-// loop sequential with the carry in registers and the next column's
-// loads issued before the current step's arithmetic. Only H warps exist
-// (1080 at 1080p, ~8 per SM of 64 slots), so the scan is bounded by load
-// latency rather than by the memory rate; a deeper prefetch or more rows
-// in flight per SM is later work.
+// C and L and writes S_we (3 volumes): 10 B a cell at int16, 2.65 GB at
+// 1080x1920x128, 0.79 ms at 3.35 TB/s. Only H warps exist (1080 at 1080p,
+// ~8 per SM), so a warp that waits a memory latency per step is latency-
+// bound. Design: one warp per row, the x loop sequential with the carry in
+// registers; a stage of the ring is 32/K contiguous columns of the row, one
+// block of 32/K * D int16 per operand, so each warp keeps 3 stages of C (and
+// in the backward scan of L) in flight while it scans the fourth.
 // ---------------------------------------------------------------------------
 
 template <int K, bool BACKWARD, typename OutT>
-__global__ void hscan_kernel(const int16_t* __restrict__ cost,
-                             const int16_t* __restrict__ lin,
-                             OutT* __restrict__ out, int h, int w, int D,
-                             int p1, int p2) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= h) return;  // warp-uniform
+__global__ void __launch_bounds__(32 * kScanWarps)
+hscan_kernel(const int16_t* __restrict__ cost, const int16_t* __restrict__ lin,
+             OutT* __restrict__ out, int h, int w, int D, int p1, int p2) {
+  constexpr int G = hscan_stage<K>();     // columns per stage
+  constexpr int NOPS = BACKWARD ? 2 : 1;  // operands streamed: C (and L)
+  extern __shared__ __align__(16) int16_t scan_ring[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kScanWarps + warp;
+  if (row >= h) return;  // warp-uniform; the kernel has no block barrier
+  const int sd = G * D;  // int16 per stage and operand
+  int16_t* const cr = scan_ring + (size_t)warp * NOPS * kRing * sd;
+  int16_t* const lr = cr + kRing * sd;
   const bool live = lane * K < D;
-  const size_t base = (size_t)row * w * D + lane * K;
+  const size_t base = (size_t)row * w * D;
+  const int nst = (w + G - 1) / G;
 
-  int l[K], c[K], cn[K], a[K], an[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    l[k] = live ? 0 : kBig;
-    c[k] = cn[k] = a[k] = an[k] = 0;
-  }
-  int x = BACKWARD ? w - 1 : 0;
-  if (live) {
-    load_vec<K>(cost + base + (size_t)x * D, c);
-    if (BACKWARD) load_vec<K>(lin + base + (size_t)x * D, a);
-  }
-  for (int s = 0; s < w; ++s) {
-    const int xn = BACKWARD ? x - 1 : x + 1;
-    if (live && s + 1 < w) {
-      load_vec<K>(cost + base + (size_t)xn * D, cn);
-      if (BACKWARD) load_vec<K>(lin + base + (size_t)xn * D, an);
+  // Stage j holds scan steps j*G .. j*G + G - 1: columns [lo(j), hi(j)).
+  auto lo = [&](int j) { return BACKWARD ? max(w - (j + 1) * G, 0) : j * G; };
+  auto hi = [&](int j) { return BACKWARD ? w - j * G : min((j + 1) * G, w); };
+  auto issue = [&](int j) {
+    if (j < nst) {
+      const int s = j % kRing, x0 = lo(j), n = (hi(j) - x0) * D * 2;
+      warp_copy(cr + s * sd, cost + base + (size_t)x0 * D, n, lane);
+      if (BACKWARD) warp_copy(lr + s * sd, lin + base + (size_t)x0 * D, n, lane);
     }
-    sgm_step<K>(l, c, live, lane, p1, p2);
-    if (live) {
-      if (BACKWARD) {
-        int o[K];
+    cp_async_commit();  // empty past the row's end: keeps the group count
+  };
+
+  int l[K], c[K] = {}, a[K] = {};
 #pragma unroll
-        for (int k = 0; k < K; ++k) o[k] = a[k] + l[k];
-        store_vec<K>(out + base + (size_t)x * D, o);
-      } else {
-        store_vec<K>(out + base + (size_t)x * D, l);
+  for (int k = 0; k < K; ++k) l[k] = live ? 0 : kBig;
+  for (int j = 0; j < kRing - 1; ++j) issue(j);
+  for (int j = 0; j < nst; ++j) {
+    issue(j + kRing - 1);  // into the stage scanned at j - 1
+    ring_wait();
+    const int x0 = lo(j), n = hi(j) - x0;
+    const int16_t* const cs = cr + (j % kRing) * sd + lane * K;
+    const int16_t* const ls = lr + (j % kRing) * sd + lane * K;
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      if (i >= n) break;  // warp-uniform
+      const int o = BACKWARD ? n - 1 - i : i;
+      if (live) {
+        load_vec<K>(cs + o * D, c);
+        if (BACKWARD) load_vec<K>(ls + o * D, a);
+      }
+      sgm_step<K>(l, c, live, lane, p1, p2);
+      if (live) {
+        OutT* const dst = out + base + (size_t)(x0 + o) * D + lane * K;
+        if (BACKWARD) {
+          int s[K];
+#pragma unroll
+          for (int k = 0; k < K; ++k) s[k] = a[k] + l[k];
+          store_vec<K>(dst, s);
+        } else {
+          store_vec<K>(dst, l);
+        }
       }
     }
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      c[k] = cn[k];
-      a[k] = an[k];
-    }
-    x = xn;
+    __syncwarp();  // every lane is done with this stage before it is refilled
   }
 }
 
@@ -490,88 +553,113 @@ __global__ void hscan_kernel(const int16_t* __restrict__ cost,
 // ops/sgm.py.
 //
 // Replaces depthestimation_tpu/ops/pallas_sgm.py::_rowsweep_kernel. The
-// TPU kernel sweeps all of a pass's directions (dxs) in one launch; here
-// the wrapper launches once per direction, each launch adding one L to
-// the partial sum (stored int32 between launches, so nothing can wrap;
-// the last launch stores the _final_dtype or _acc_dtype rule's type).
+// TPU kernel sweeps all of a pass's directions (dxs) in one launch, its
+// carries for a whole row in VMEM; here the wrapper launches once per
+// direction, each launch adding one L to the partial sum, which it stores
+// in the pass's out dtype (ops/cuda_sgm.rowsweep says why that is exact):
+// 18 B a cell for a three-direction pass at int16, against the TPU's 6.
 //
 // Every pixel lies on exactly one line x - (dx/dy)*y = const, and the
 // lines are independent scans. Design: one warp per line, walking it from
-// its first pixel (on the first row in scan order, or on the entry
-// column for a diagonal) with the carry in registers; each step reads D
-// contiguous values per operand. A vertical pass has W lines, a diagonal
-// one W + H - 1 of unequal length.
+// its first pixel (on the first row in scan order, or on the entry column
+// for a diagonal) with the carry in registers. A stage of the ring is 16/K
+// consecutive pixels of the line, the D-long runs of C and of the partial
+// sum at each (for a diagonal, (w +- 1) * D apart), so each warp keeps 3
+// stages (~6 KB at D = 128, int16) in flight while it scans the fourth.
+// A vertical pass has W lines, a diagonal one W + H - 1 of 1 to min(H, W)
+// pixels.
 //
 // Bound: bytes -- reads C and the partial sum, writes the new sum (3
-// volumes per direction). Only W to W + H - 1 warps exist (1920 to 2999 at
-// 1080p, ~15-23 per SM), so like K2 each launch is bounded by load latency
-// rather than by the memory rate; raising the loads in flight is later
-// work.
+// volumes per direction: 6 B a cell at int16, 0.475 ms at 1080x1920x128),
+// with 1920 to 2999 lines a launch, so the ring hides each warp's latency.
 // ---------------------------------------------------------------------------
 
 template <int K, typename InT, typename OutT>
-__global__ void rowsweep_kernel(const int16_t* __restrict__ cost,
-                                const InT* __restrict__ acc,
-                                OutT* __restrict__ out, int h, int w, int D,
-                                int dy, int dx, int p1, int p2) {
-  const int line = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
+__global__ void __launch_bounds__(32 * kScanWarps)
+rowsweep_kernel(const int16_t* __restrict__ cost, const InT* __restrict__ acc,
+                OutT* __restrict__ out, int h, int w, int D, int dy, int dx,
+                int p1, int p2) {
+  constexpr int G = rowsweep_stage<K>();  // pixels per stage
+  extern __shared__ __align__(16) int16_t scan_ring[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int line = blockIdx.x * kScanWarps + warp;
   if (line >= (dx == 0 ? w : w + h - 1)) return;  // warp-uniform
   const bool live = lane * K < D;
 
   // First pixel of the line (on the first row in scan order, or for a
   // diagonal's lines past w on the entry column) and its pixel count.
   // Selects, not branches: with branches here nvcc no longer proves the
-  // warp converged in the loop, and serialises the two prefetch loads.
+  // warp converged in the loop.
   const bool from_col = line >= w;
-  const int j = line - w + 1;
-  const int y = from_col ? (dy > 0 ? j : h - 1 - j) : (dy > 0 ? 0 : h - 1);
+  const int e = line - w + 1;  // entry row, counted in scan order
+  const int y = from_col ? (dy > 0 ? e : h - 1 - e) : (dy > 0 ? 0 : h - 1);
   const int x = from_col ? (dx > 0 ? 0 : w - 1) : line;
   const int rows_left = dy > 0 ? h - y : y + 1;
   const int cols_left = dx > 0 ? w - x : (dx < 0 ? x + 1 : rows_left);
   const int n = min(rows_left, cols_left);
   const ptrdiff_t step = ((ptrdiff_t)dy * w + dx) * D;
-  ptrdiff_t p = ((ptrdiff_t)y * w + x) * D + lane * K;
+  const ptrdiff_t p0 = ((ptrdiff_t)y * w + x) * D;
 
-  int l[K], c[K], a[K];
+  // A stage: G pixels of C (int16), then G pixels of the partial sum (InT).
+  const int cb = D * 2, ab = D * (int)sizeof(InT);  // bytes per pixel
+  const int sb = G * (cb + ab);                      // bytes per stage
+  unsigned char* const ring =
+      reinterpret_cast<unsigned char*>(scan_ring) + (size_t)warp * kRing * sb;
+  auto issue = [&](int j) {
+    unsigned char* const st = ring + (j % kRing) * sb;
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    l[k] = live ? 0 : kBig;
-    c[k] = a[k] = 0;
-  }
-  if (live) {
-    load_vec<K>(cost + p, c);
-    load_vec<K>(acc + p, a);
-  }
-  // The next pixel's operands stay packed until the step is done, so both
-  // loads are in flight together while it runs.
-  Vec<int16_t, K> cn = {};
-  Vec<InT, K> an = {};
-  for (int s = 0; s < n; ++s) {
-    if (live && s + 1 < n) {
-      cn = *reinterpret_cast<const Vec<int16_t, K>*>(cost + p + step);
-      an = *reinterpret_cast<const Vec<InT, K>*>(acc + p + step);
+    for (int g = 0; g < G; ++g) {
+      const int s = j * G + g;
+      if (s < n) {  // warp-uniform
+        const ptrdiff_t p = p0 + (ptrdiff_t)s * step;
+        const char* const cp = reinterpret_cast<const char*>(cost + p);
+        const char* const ap = reinterpret_cast<const char*>(acc + p);
+        for (int o = lane * 16; o < cb + ab; o += 32 * 16) {
+          if (o < cb) {
+            cp_async16(st + g * cb + o, cp + o);
+          } else {
+            cp_async16(st + G * cb + g * ab + (o - cb), ap + (o - cb));
+          }
+        }
+      }
     }
-    sgm_step<K>(l, c, live, lane, p1, p2);
-    if (live) {
-      int o[K];
+    cp_async_commit();  // empty past the line's end: keeps the group count
+  };
+
+  int l[K], c[K] = {}, a[K] = {};
 #pragma unroll
-      for (int k = 0; k < K; ++k) o[k] = a[k] + l[k];
-      store_vec<K>(out + p, o);
-    }
+  for (int k = 0; k < K; ++k) l[k] = live ? 0 : kBig;
+  const int nst = (n + G - 1) / G;
+  for (int j = 0; j < kRing - 1; ++j) issue(j);
+  for (int j = 0; j < nst; ++j) {
+    issue(j + kRing - 1);  // into the stage scanned at j - 1
+    ring_wait();
+    const unsigned char* const st = ring + (j % kRing) * sb;
+    const int16_t* const cs = reinterpret_cast<const int16_t*>(st) + lane * K;
+    const InT* const as = reinterpret_cast<const InT*>(st + G * cb) + lane * K;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      c[k] = cn.v[k];
-      a[k] = an.v[k];
+    for (int g = 0; g < G; ++g) {
+      const int s = j * G + g;
+      if (s >= n) break;  // warp-uniform
+      if (live) {
+        load_vec<K>(cs + g * D, c);
+        load_vec<K>(as + g * D, a);
+      }
+      sgm_step<K>(l, c, live, lane, p1, p2);
+      if (live) {
+        int o[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) o[k] = a[k] + l[k];
+        store_vec<K>(out + p0 + (ptrdiff_t)s * step + lane * K, o);
+      }
     }
-    p += step;
+    __syncwarp();  // every lane is done with this stage before it is refilled
   }
 }
 
-constexpr int kWarpsPerBlock = 4;
-
 // Per-lane disparity count K for D (a multiple of 16, at most 256).
 int lanes_k(int D) {
+  if (D % 16 != 0) return 0;
   if (D <= 32) return 1;
   if (D <= 64) return 2;
   if (D <= 128) return 4;
@@ -579,55 +667,68 @@ int lanes_k(int D) {
   return 0;
 }
 
-dim3 warp_grid(int lines) {
-  const int per = kWarpsPerBlock;
-  return dim3((lines + per - 1) / per);
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Launches a scan kernel with one warp per line and `smem` bytes of ring a
+// block (above 48 KB only after raising the kernel's limit).
+template <typename... Params, typename... Args>
+int scan_launch(void (*kernel)(Params...), int lines, size_t smem,
+                cudaStream_t stream, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(kernel),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = (lines + kScanWarps - 1) / kScanWarps;
+  kernel<<<blocks, 32 * kScanWarps, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 template <int K>
-void hscan_launch(const int16_t* cost, const int16_t* lin, void* out,
-                  int out_int32, int backward, int h, int w, int D, int p1,
-                  int p2, cudaStream_t stream) {
-  const dim3 grid = warp_grid(h), block(32 * kWarpsPerBlock);
-  if (!backward) {
-    hscan_kernel<K, false, int16_t><<<grid, block, 0, stream>>>(
-        cost, nullptr, static_cast<int16_t*>(out), h, w, D, p1, p2);
-  } else if (out_int32) {
-    hscan_kernel<K, true, int32_t><<<grid, block, 0, stream>>>(
-        cost, lin, static_cast<int32_t*>(out), h, w, D, p1, p2);
-  } else {
-    hscan_kernel<K, true, int16_t><<<grid, block, 0, stream>>>(
-        cost, lin, static_cast<int16_t*>(out), h, w, D, p1, p2);
-  }
+int hscan_launch(const int16_t* cost, const int16_t* lin, void* out,
+                 int out_int32, int backward, int h, int w, int D, int p1,
+                 int p2, cudaStream_t stream) {
+  const size_t stage = (size_t)hscan_stage<K>() * D * sizeof(int16_t);
+  const size_t fwd = kScanWarps * kRing * stage, bwd = 2 * fwd;
+  if (!backward)
+    return scan_launch(&hscan_kernel<K, false, int16_t>, h, fwd, stream, cost,
+                       lin, static_cast<int16_t*>(out), h, w, D, p1, p2);
+  if (out_int32)
+    return scan_launch(&hscan_kernel<K, true, int32_t>, h, bwd, stream, cost,
+                       lin, static_cast<int32_t*>(out), h, w, D, p1, p2);
+  return scan_launch(&hscan_kernel<K, true, int16_t>, h, bwd, stream, cost,
+                     lin, static_cast<int16_t*>(out), h, w, D, p1, p2);
 }
 
 template <int K, typename InT>
-void rowsweep_launch_in(const int16_t* cost, const void* acc, void* out,
-                        int out_int32, int h, int w, int D, int dy, int dx,
-                        int p1, int p2, cudaStream_t stream) {
-  const dim3 grid = warp_grid(dx == 0 ? w : w + h - 1),
-             block(32 * kWarpsPerBlock);
+int rowsweep_launch_in(const int16_t* cost, const void* acc, void* out,
+                       int out_int32, int h, int w, int D, int dy, int dx,
+                       int p1, int p2, cudaStream_t stream) {
+  const int lines = dx == 0 ? w : w + h - 1;
+  const size_t smem =
+      (size_t)kScanWarps * kRing * rowsweep_stage<K>() * D * (2 + sizeof(InT));
   const InT* a = static_cast<const InT*>(acc);
-  if (out_int32) {
-    rowsweep_kernel<K, InT, int32_t><<<grid, block, 0, stream>>>(
-        cost, a, static_cast<int32_t*>(out), h, w, D, dy, dx, p1, p2);
-  } else {
-    rowsweep_kernel<K, InT, int16_t><<<grid, block, 0, stream>>>(
-        cost, a, static_cast<int16_t*>(out), h, w, D, dy, dx, p1, p2);
-  }
+  if (out_int32)
+    return scan_launch(&rowsweep_kernel<K, InT, int32_t>, lines, smem, stream,
+                       cost, a, static_cast<int32_t*>(out), h, w, D, dy, dx,
+                       p1, p2);
+  return scan_launch(&rowsweep_kernel<K, InT, int16_t>, lines, smem, stream,
+                     cost, a, static_cast<int16_t*>(out), h, w, D, dy, dx, p1,
+                     p2);
 }
 
 template <int K>
-void rowsweep_launch(const int16_t* cost, const void* acc, int acc_int32,
-                     void* out, int out_int32, int h, int w, int D, int dy,
-                     int dx, int p1, int p2, cudaStream_t stream) {
-  if (acc_int32) {
-    rowsweep_launch_in<K, int32_t>(cost, acc, out, out_int32, h, w, D, dy,
-                                   dx, p1, p2, stream);
-  } else {
-    rowsweep_launch_in<K, int16_t>(cost, acc, out, out_int32, h, w, D, dy,
-                                   dx, p1, p2, stream);
-  }
+int rowsweep_launch(const int16_t* cost, const void* acc, int acc_int32,
+                    void* out, int out_int32, int h, int w, int D, int dy,
+                    int dx, int p1, int p2, cudaStream_t stream) {
+  if (acc_int32)
+    return rowsweep_launch_in<K, int32_t>(cost, acc, out, out_int32, h, w, D,
+                                          dy, dx, p1, p2, stream);
+  return rowsweep_launch_in<K, int16_t>(cost, acc, out, out_int32, h, w, D,
+                                        dy, dx, p1, p2, stream);
 }
 
 template <int BS, bool CENSUS>
@@ -697,28 +798,30 @@ int sgm_census_cost_volume(const float* left, const float* right,
 int sgm_hscan(const int16_t* cost, const int16_t* lin, void* out,
               int out_int32, int backward, int h, int w, int D, int p1, int p2,
               cudaStream_t stream) {
+  if (!aligned16(cost) || !aligned16(out) || (backward && !aligned16(lin)))
+    return (int)cudaErrorInvalidValue;
   switch (lanes_k(D)) {
-    case 1: hscan_launch<1>(cost, lin, out, out_int32, backward, h, w, D, p1, p2, stream); break;
-    case 2: hscan_launch<2>(cost, lin, out, out_int32, backward, h, w, D, p1, p2, stream); break;
-    case 4: hscan_launch<4>(cost, lin, out, out_int32, backward, h, w, D, p1, p2, stream); break;
-    case 8: hscan_launch<8>(cost, lin, out, out_int32, backward, h, w, D, p1, p2, stream); break;
+    case 1: return hscan_launch<1>(cost, lin, out, out_int32, backward, h, w, D, p1, p2, stream);
+    case 2: return hscan_launch<2>(cost, lin, out, out_int32, backward, h, w, D, p1, p2, stream);
+    case 4: return hscan_launch<4>(cost, lin, out, out_int32, backward, h, w, D, p1, p2, stream);
+    case 8: return hscan_launch<8>(cost, lin, out, out_int32, backward, h, w, D, p1, p2, stream);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 int sgm_rowsweep(const int16_t* cost, const void* acc, int acc_int32,
                  void* out, int out_int32, int h, int w, int D, int dy, int dx,
                  int p1, int p2, cudaStream_t stream) {
-  if ((dy != 1 && dy != -1) || dx < -1 || dx > 1) return (int)cudaErrorInvalidValue;
+  if ((dy != 1 && dy != -1) || dx < -1 || dx > 1 || !aligned16(cost) ||
+      !aligned16(acc) || !aligned16(out))
+    return (int)cudaErrorInvalidValue;
   switch (lanes_k(D)) {
-    case 1: rowsweep_launch<1>(cost, acc, acc_int32, out, out_int32, h, w, D, dy, dx, p1, p2, stream); break;
-    case 2: rowsweep_launch<2>(cost, acc, acc_int32, out, out_int32, h, w, D, dy, dx, p1, p2, stream); break;
-    case 4: rowsweep_launch<4>(cost, acc, acc_int32, out, out_int32, h, w, D, dy, dx, p1, p2, stream); break;
-    case 8: rowsweep_launch<8>(cost, acc, acc_int32, out, out_int32, h, w, D, dy, dx, p1, p2, stream); break;
+    case 1: return rowsweep_launch<1>(cost, acc, acc_int32, out, out_int32, h, w, D, dy, dx, p1, p2, stream);
+    case 2: return rowsweep_launch<2>(cost, acc, acc_int32, out, out_int32, h, w, D, dy, dx, p1, p2, stream);
+    case 4: return rowsweep_launch<4>(cost, acc, acc_int32, out, out_int32, h, w, D, dy, dx, p1, p2, stream);
+    case 8: return rowsweep_launch<8>(cost, acc, acc_int32, out, out_int32, h, w, D, dy, dx, p1, p2, stream);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -9,7 +9,8 @@ kernel call and later processes reuse the library.
 
 Every wrapper (ops/cuda_sgm.py, ops/remap.py) takes a tensor on the CPU
 through its plain version and launches its kernel for a tensor on the
-card; it never falls back. Each launch adds one to LAUNCHES[name].
+card; it never falls back. Each launch adds one to LAUNCHES[name], and
+each wrapper call that launched its kernels adds one to CALLS[name].
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["LAUNCHES", "reset_launches", "load_library", "build_log"]
+__all__ = ["LAUNCHES", "CALLS", "reset_launches", "load_library", "build_log"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -43,6 +44,9 @@ _SIGNATURES = {
 LAUNCHES = {name: 0 for name in (
     "cost_volume", "cost_volume_census", "hscan", "rowsweep", "rowsweep_up",
     "rowsweep_diag", "rowsweep_diag_up", "remap")}
+# Wrapper calls on the card per kernel, under the same names (a call of
+# hscan makes 2 launches, a three-direction rowsweep pass 3).
+CALLS = dict.fromkeys(LAUNCHES, 0)
 
 _lib = None
 
@@ -105,8 +109,10 @@ def load_library() -> ctypes.CDLL:
 
 
 def reset_launches() -> None:
+    """Set every launch and call count to 0."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        CALLS[name] = 0
 
 
 def on_card(t) -> bool:
@@ -136,6 +142,11 @@ def launched(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
+
+
+def called(name: str) -> None:
+    """Count one wrapper call whose launches all went through."""
+    CALLS[name] += 1
 
 
 def stream() -> int:

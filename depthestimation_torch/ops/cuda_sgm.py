@@ -16,8 +16,9 @@ past the int16 bounds raise NotImplementedError (check_supported).
 
 Each wrapper takes a tensor on the CPU through its plain version (the
 same function in plain torch ops) and launches its kernel for a tensor on
-the card; it never falls back. Each launch adds one to LAUNCHES[name]
-(cuda_build.LAUNCHES, shared with the remap kernel).
+the card; it never falls back. Each launch adds one to LAUNCHES[name],
+each call on the card one to CALLS[name] (cuda_build, shared with the
+remap kernel).
 
 Storage dtypes are int16 whenever the worst-case magnitude k * bound of
 the k directions summed into the stored tensor fits, as in the JAX
@@ -29,12 +30,13 @@ from __future__ import annotations
 import torch
 
 from . import costs, sgm, wta
-from .cuda_build import (LAUNCHES, check as _check, launched as _launched,
-                         load_library, on_card as _on_card,
-                         reset_launches, stream as _stream)
+from .cuda_build import (CALLS, LAUNCHES, called as _called, check as _check,
+                         launched as _launched, load_library,
+                         on_card as _on_card, reset_launches,
+                         stream as _stream)
 
 __all__ = [
-    "LAUNCHES", "reset_launches", "kernels_supported", "check_supported",
+    "LAUNCHES", "CALLS", "reset_launches", "kernels_supported", "check_supported",
     "cost_volume", "hscan", "rowsweep", "cost_volume_plain", "hscan_plain",
     "rowsweep_plain", "sgm_disparity", "sgm_disparity_plain",
 ]
@@ -144,16 +146,19 @@ def cost_volume(left: torch.Tensor, right: torch.Tensor, cfg) -> torch.Tensor:
     out = torch.empty((h, w, cfg.num_disp), dtype=torch.int16, device=left.device)
     lib = load_library()
     if cfg.cost == "census":
-        _launched("cost_volume_census", lib.sgm_census_cost_volume(
+        name = "cost_volume_census"
+        _launched(name, lib.sgm_census_cost_volume(
             left.data_ptr(), right.data_ptr(), out.data_ptr(),
             h, w, cfg.num_disp, cfg.min_disp, cfg.block_size, _stream(),
         ))
     else:
-        _launched("cost_volume", lib.sgm_cost_volume(
+        name = "cost_volume"
+        _launched(name, lib.sgm_cost_volume(
             left.data_ptr(), right.data_ptr(), out.data_ptr(),
             h, w, cfg.num_disp, cfg.min_disp, cfg.block_size,
             cfg.prefilter_cap, _stream(),
         ))
+    _called(name)
     return out
 
 
@@ -182,6 +187,7 @@ def hscan(cost: torch.Tensor, cfg) -> torch.Tensor:
         cost.data_ptr(), l_lr.data_ptr(), out.data_ptr(),
         int(acc_dt == torch.int32), 1, h, w, d, cfg.p1, cfg.p2, _stream(),
     ))
+    _called("hscan")
     return out
 
 
@@ -207,8 +213,15 @@ def rowsweep(cost: torch.Tensor, acc: torch.Tensor, cfg, dxs, reverse: bool,
              out_dtype: torch.dtype) -> torch.Tensor:
     """K3: acc + the row-direction sweeps (dy = -1 if reverse else +1, one
     per dx in dxs) over int16 C, stored in out_dtype (the TPU signature,
-    pallas_sgm.py:658). One launch per direction; partial sums between
-    launches are int32, so any order of the integer sums is exact."""
+    pallas_sgm.py:658). One launch per direction, each adding its L to the
+    partial sum, which every launch stores in out_dtype.
+
+    That is exact. Every per-direction L is >= 0: C >= 0, and the min(...)
+    of the recurrence is >= min L', so L >= C. With acc >= 0 every partial
+    sum acc + L_1 + ... + L_k therefore lies between 0 and the pass's final
+    sum, which out_dtype holds by the _acc_dtype/_final_dtype rules. (Where
+    a caller's out_dtype cannot hold the final sum, int16 partials keep the
+    low 16 bits of the sum, as an int32 sum stored as int16 would.)"""
     if not _on_card(cost):
         return rowsweep_plain(cost, acc, cfg, dxs, reverse, out_dtype)
     lib = load_library()
@@ -222,15 +235,15 @@ def rowsweep(cost: torch.Tensor, acc: torch.Tensor, cfg, dxs, reverse: bool,
     if not dxs or any(dx not in (-1, 0, 1) for dx in dxs):
         raise ValueError(f"dxs must be a non-empty list of -1, 0, 1: {dxs}")
     name = _rowsweep_name(dxs, reverse)
-    for i, dx in enumerate(dxs):
-        dt = out_dtype if i == len(dxs) - 1 else torch.int32
-        out = torch.empty((h, w, d), dtype=dt, device=cost.device)
+    for dx in dxs:
+        out = torch.empty((h, w, d), dtype=out_dtype, device=cost.device)
         _launched(name, lib.sgm_rowsweep(
             cost.data_ptr(), acc.data_ptr(), int(acc.dtype == torch.int32),
-            out.data_ptr(), int(dt == torch.int32), h, w, d,
+            out.data_ptr(), int(out_dtype == torch.int32), h, w, d,
             -1 if reverse else 1, dx, cfg.p1, cfg.p2, _stream(),
         ))
         acc = out
+    _called(name)
     return acc
 
 

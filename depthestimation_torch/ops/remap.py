@@ -10,14 +10,16 @@ w00 = (1-fy)*(1-fx) (remap.py:95-100 there), and agree bit for bit.
 
 The wrapper takes a tensor on the CPU through the plain version and
 launches the kernel for a tensor on the card; it never falls back. Each
-launch adds one to LAUNCHES["remap"] (cuda_build.LAUNCHES).
+launch adds one to LAUNCHES["remap"] and each call on the card one to
+CALLS["remap"] (cuda_build).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .cuda_build import (check as _check, launched as _launched, load_library,
+from .cuda_build import (called as _called, check as _check,
+                         launched as _launched, load_library,
                          on_card as _on_card, stream as _stream)
 
 __all__ = ["remap_bilinear", "remap_bilinear_plain"]
@@ -72,4 +74,5 @@ def remap_bilinear(img: torch.Tensor, map_x: torch.Tensor,
         img.data_ptr(), map_x.data_ptr(), map_y.data_ptr(), out.data_ptr(),
         n, h, w, _stream(),
     ))
+    _called("remap")
     return out

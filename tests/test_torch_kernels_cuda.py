@@ -82,6 +82,8 @@ def test_kernels_match_plain(card, h, w, kw):
     torch.cuda.synchronize()
     counts = {k: v for k, v in cuda_sgm.LAUNCHES.items() if v}
     assert counts == {"cost_volume": 1, "hscan": 2, "rowsweep": 1}
+    calls = {k: v for k, v in cuda_sgm.CALLS.items() if v}
+    assert calls == {"cost_volume": 1, "hscan": 1, "rowsweep": 1}
     assert swe.dtype == cuda_sgm._acc_dtype(cfg)
     assert s.dtype == final
     assert_same(c, cuda_sgm.cost_volume_plain(left, right, cfg))
@@ -105,6 +107,7 @@ def test_cost_volume_fractional_and_census(card, h, w, kw):
     cuda_sgm.reset_launches()
     got = cuda_sgm.cost_volume(left, right, census)
     assert cuda_sgm.LAUNCHES["cost_volume_census"] == 1
+    assert cuda_sgm.CALLS["cost_volume_census"] == 1
     assert_same(got, cuda_sgm.cost_volume_plain(left, right, census))
 
 
@@ -121,8 +124,48 @@ def test_rowsweep_variants_match_plain(card, h, w, kw, dxs, reverse):
         torch.cuda.synchronize()
         name = cuda_sgm._rowsweep_name(dxs, reverse)
         assert cuda_sgm.LAUNCHES[name] == len(dxs)
+        assert cuda_sgm.CALLS[name] == 1
         assert_same(got, cuda_sgm.rowsweep_plain(c, acc, cfg, dxs, reverse,
                                                  out_dtype))
+
+
+# K2/K3 geometry on random costs (the scans take any (H, W) volume). A ring
+# stage is 32/K columns for K2 and 16/K pixels for K3 (K = D/32 rounded up
+# to 1, 2, 4, 8): W under one K2 stage (5 at D=16, 7 at D=128) and not a
+# multiple of it (45, 13, 70); H much larger than W and W much larger than
+# H for the diagonals; D 16 and 256; int32 acc and out at block sizes 11
+# and 13.
+SCAN_CASES = [
+    (1, 5, dict(num_disp=16)),
+    (3, 45, dict(num_disp=16, block_size=3)),
+    (2, 13, dict(num_disp=128)),
+    (5, 7, dict(num_disp=128)),
+    (60, 4, dict(num_disp=48, block_size=3)),
+    (4, 70, dict(num_disp=256, block_size=3)),
+    (9, 33, dict(num_disp=256, block_size=1)),
+    (20, 30, dict(num_disp=64, block_size=11)),
+    (17, 21, dict(num_disp=32, block_size=13, prefilter_cap=15)),
+]
+
+
+@pytest.mark.parametrize("h,w,kw", SCAN_CASES)
+def test_scans_geometry_match_plain(card, h, w, kw):
+    cfg = SGMConfig(sgbm_mode="hh", **kw)
+    rng = np.random.default_rng(h * w + cfg.num_disp)
+    c = torch.tensor(rng.integers(0, cuda_sgm._cmax(cfg) + 1, (h, w, cfg.num_disp))
+                     .astype(np.int16), device=card)
+    swe = cuda_sgm.hscan(c, cfg)
+    assert_same(swe, cuda_sgm.hscan_plain(c, cfg))
+    acc_dt, final_dt = cuda_sgm._acc_dtype(cfg), cuda_sgm._final_dtype(cfg)
+    for dxs, reverse in SWEEPS:
+        for out_dtype in (acc_dt, final_dt):
+            got = cuda_sgm.rowsweep(c, swe, cfg, dxs, reverse, out_dtype)
+            assert_same(got, cuda_sgm.rowsweep_plain(c, swe, cfg, dxs, reverse,
+                                                     out_dtype))
+    # hh's upward pass on the output of its downward pass.
+    s5 = cuda_sgm.rowsweep(c, swe, cfg, (0, 1, -1), False, acc_dt)
+    got = cuda_sgm.rowsweep(c, s5, cfg, (0, -1, 1), True, final_dt)
+    assert_same(got, cuda_sgm.rowsweep_plain(c, s5, cfg, (0, -1, 1), True, final_dt))
 
 
 # w % 4 != 0 (13x103, 7x129, 9x6) takes the kernel's scalar form.
@@ -140,6 +183,7 @@ def test_remap_matches_plain(card, h, w):
     got = remap.remap_bilinear(img, mx, my)
     torch.cuda.synchronize()
     assert cuda_sgm.LAUNCHES["remap"] == 1
+    assert cuda_sgm.CALLS["remap"] == 1
     want = remap.remap_bilinear_plain(img, mx, my)
     assert torch.equal(got, want), (got - want).abs().max()
     assert torch.equal(got.cpu(), remap.remap_bilinear(img.cpu(), mx.cpu(), my.cpu()))

@@ -41,8 +41,10 @@ def test_raw_disparity_exact(kw):
     got = pipeline.raw_disparity(torch.tensor(left, dtype=torch.float32),
                                  torch.tensor(right, dtype=torch.float32), cfg)
     np.testing.assert_array_equal(got.numpy(), want)
-    # The wrappers took their plain versions on the CPU: no launches.
+    # The wrappers took their plain versions on the CPU: no launches and
+    # no calls counted.
     assert not any(cuda_sgm.LAUNCHES.values())
+    assert not any(cuda_sgm.CALLS.values())
     assert (np.abs(want[:, kw["num_disp"]:] - SHIFT) <= 0.5).mean() > 0.9
 
 

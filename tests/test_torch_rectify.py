@@ -128,7 +128,9 @@ def test_remap_matches_jax():
     for i in range(2):
         assert torch.equal(both[i], remap.remap_bilinear(
             torch.tensor(img2[i]), torch.tensor(mx2[i]), torch.tensor(my2[i])))
-    assert cuda_sgm.LAUNCHES["remap"] == 0  # plain version on the CPU
+    # Plain version on the CPU: no launch and no call counted.
+    assert cuda_sgm.LAUNCHES["remap"] == 0
+    assert cuda_sgm.CALLS["remap"] == 0
 
 
 def test_remap_border_rules_match_jax():
