@@ -1,6 +1,6 @@
 """Drive the PyTorch port's stereo paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--trace-dir DIR]
 
 Phases (any failure exits non-zero and prints no result):
   1. device: the card's name and power limit; build the CUDA kernels from
@@ -33,11 +33,27 @@ Phases (any failure exits non-zero and prints no result):
         against the CPU on a small calibrated pair; ms per pair;
      c. hh (8 paths) and census (sgbm_3way) with the north-star flags:
         the known shift and ms per pair;
+     d. streaming through StereoDepthEstimatorVideo(device="cuda"), each
+        stream driven with the counts set to 0 just before and read just
+        after, which must be exactly frames x the path's per-pair counts:
+        A, the JAX bench's streaming_sustained_fps (40 uint8 1080p frames
+        of the texture pair, brightness drifted +i, fast mode, hh4,
+        no speckle, WLS, float16 depth), threaded and sequential, equal
+        bit for bit, frames 0/20/39 equal to the float16 cast of
+        StereoDepthEstimator's depth, the known shift on >= 95 %;
+        B, the live example's smoother (temporal 0.4, hole filling, full
+        postprocess) on 8 raw frames of the rectified rig, every frame
+        equal to StereoPipeline.estimate_depth with the same temporal
+        carry; C, 6 frames of 96x320 with temporal on, card against CPU
+        (rtol 1e-5). For A and B: fps, latency and bytes per frame, and
+        one steady frame's host time to enqueue against its device time
+        (events behind a sleep kernel sized from the enqueue time) and a
+        profiler trace's kernel time;
   4. one JSON line {"kernels": [...]}: per kernel the wrapper calls and
      kernel launches counted in phase 3 in one pair of the path named, ms
      per call, its bound, and the loss per pair, calls x (ms - bound_ms);
-  5. the card's name and power limit, then the last line
-     {"ok": true, "device": {...}}.
+  5. one JSON line {"streams": {...}} with phase 3d's numbers, the card's
+     name and power limit, then the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or depthestimation_tpu.
 """
@@ -208,6 +224,15 @@ def hold_exact(name, got, want, errs):
         raise AssertionError(f"{name} disagrees with its plain version")
 
 
+def counted():
+    """{kernel: (wrapper calls, launches)} since the last reset, for every
+    kernel called or launched."""
+    from depthestimation_torch.ops import cuda_sgm
+
+    return {k: (cuda_sgm.CALLS[k], n)
+            for k, n in cuda_sgm.LAUNCHES.items() if n or cuda_sgm.CALLS[k]}
+
+
 def drive(est, counts_of, path, expected):
     """One estimate_depth() with the wrapper call and launch counts set to
     0 just before and read just after. Fails unless the pair called and
@@ -218,8 +243,7 @@ def drive(est, counts_of, path, expected):
     cuda_sgm.reset_launches()
     out = est.estimate_depth()
     torch.cuda.synchronize()
-    counts = {k: (cuda_sgm.CALLS[k], n)
-              for k, n in cuda_sgm.LAUNCHES.items() if n or cuda_sgm.CALLS[k]}
+    counts = counted()
     log(f"[3{path[0]}] (calls, launches) in one {path} pair: {counts}")
     if counts != expected:
         raise AssertionError(f"the {path} path made (calls, launches) "
@@ -254,7 +278,252 @@ def k3_passes(c, swe, cfg, cfg4, cfg8):
     }
 
 
+# ---- 3d. streaming ----
+# Stream A: the JAX bench's streaming_sustained_fps (bench.py:455-498).
+STREAM_A = dict(num_disp=D, sgbm_mode="hh4", speckle_window_size=0,
+                wls_filter=True, focal_length=1000.0, baseline=0.12)
+# Stream B: the live example's smoother (examples/example_stereo_live.py:
+# 55-62), full postprocess, on the mild calibrated rig.
+LIVE = dict(hole_filling=True, temporal_alpha=0.4)
+
+
+def drifted(pair, n):
+    """n frame pairs of an RGB uint8 pair, brightness drifted by +i on
+    frame i (bench.py:470-471)."""
+    return tuple([np.clip(img.astype(np.int16) + i, 0, 255).astype(np.uint8)
+                  for i in range(n)] for img in pair)
+
+
+def run_stream(frames, sgbm, expected, tag, **kw):
+    """Stream frames through StereoDepthEstimatorVideo(device="cuda") with
+    the call and launch counts set to 0 just before and read just after;
+    fails unless every frame came out, none failed, and the stream called
+    and launched exactly `expected` ({name: (calls, launches)}). Returns
+    (yielded depth maps, metrics summary)."""
+    from depthestimation_torch import StereoDepthEstimatorVideo
+    from depthestimation_torch.ops import cuda_sgm
+
+    vid = StereoDepthEstimatorVideo(*frames, target_fps=0, device="cuda", **kw)
+    vid.configure_sgbm(**sgbm)
+    cuda_sgm.reset_launches()
+    out = list(vid.estimate_depth())
+    torch.cuda.synchronize()
+    counts = counted()
+    summary = vid.metrics.summary()
+    log(f"[3d] {tag}: {summary}; (calls, launches) over the stream: {counts}")
+    if len(out) != len(frames[0]) or summary["frames_failed"] != 0:
+        raise AssertionError(f"{tag}: {len(out)} of {len(frames[0])} frames, "
+                             f"{summary['frames_failed']} failed")
+    if counts != expected:
+        raise AssertionError(f"{tag}: (calls, launches) {counts}, expected {expected}")
+    summary["launches"] = {k: n for k, (_, n) in counts.items()}
+    return out, summary
+
+
+def sleep_cycles_per_ms() -> float:
+    """Cycles of torch.cuda._sleep per ms on this card, from 10 M cycles."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    return 10_000_000 / start.elapsed_time(end)
+
+
+def host_device_split(fn, cycles_per_ms, trace_dir=None, runs=3):
+    """Host ms to enqueue fn() against the card's ms to run it.
+
+    - host_ms: wall time of the enqueue from an idle card;
+    - host_behind_sleep_ms: the same behind a sleep kernel 3x longer than
+      the slowest host_ms plus 20 ms, so the card is kept busy;
+    - device_events_ms: CUDA events around fn() enqueued behind that
+      sleep;
+    - kernel_ms / span_ms / kernels: the sum of fn()'s kernel times, the
+      time from its first kernel's start to its last one's end, and its
+      kernel count, from a torch.profiler trace of one call enqueued from
+      an idle card (0 if the profiler saw no device activity), written
+      as a Chrome trace under trace_dir when one is given.
+    Medians of `runs`, after two warm-up calls. A stream's launch queue is
+    finite: when fn() makes more launches than it holds, the host waits
+    for the card once it is full, so host_behind_sleep_ms then runs into
+    the sleep, and device_events_ms includes the card waiting for the
+    host after the sleep; kernel_ms does not. card_idle_share, 1 -
+    kernel_ms / host_ms, is the share of the time the card would idle
+    waiting for the host if calls were enqueued back to back."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from depthestimation_torch import profiling
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    idle, busy, dev = [], [], []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        idle.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    sleep_ms = 3 * max(idle) + 20
+    sleep = int(sleep_ms * cycles_per_ms)
+    for _ in range(runs):
+        torch.cuda._sleep(sleep)
+        t0 = time.perf_counter()
+        fn()
+        busy.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        dev.append(start.elapsed_time(end))
+    tracer = (profiling.trace(trace_dir) if trace_dir else
+              profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+    with tracer as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernel_us = sum(e.time_range.elapsed_us() for e in kernels)
+    span_us = (max(e.time_range.end for e in kernels)
+               - min(e.time_range.start for e in kernels)) if kernels else 0
+    split = {"host_ms": float(np.median(idle)),
+             "host_behind_sleep_ms": float(np.median(busy)),
+             "device_events_ms": float(np.median(dev)),
+             "kernel_ms": kernel_us / 1e3, "span_ms": span_us / 1e3,
+             "kernels": len(kernels), "sleep_ms": sleep_ms}
+    # The profiler slows the host's launches, so the idle share inside
+    # the traced call reads higher than card_idle_share.
+    split["card_idle_share"] = (max(0.0, 1.0 - split["kernel_ms"] / split["host_ms"])
+                                if kernels else None)
+    split["traced_idle_share"] = (1.0 - kernel_us / span_us) if span_us else None
+    return split
+
+
+def frame_split(vid, left, right, cycles_per_ms, tag, trace_dir):
+    """host_device_split of one steady-state frame of the facade: compute,
+    depth cast and read-back copies, as StereoDepthEstimatorVideo enqueues
+    them, on a pair already staged on the card; its trace goes to
+    trace_dir/trace_<tag> when a trace_dir is given."""
+
+    def frame():
+        disp, depth = vid.core.estimate_depth_async(left, right)
+        if depth is not None and vid.depth_dtype == "float16":
+            depth = depth.to(torch.float16)
+        return vid._readback(disp, depth)
+
+    split = host_device_split(frame, cycles_per_ms,
+                              trace_dir and f"{trace_dir}/trace_{tag}")
+    log(f"[3d] {tag} one steady frame: {split}")
+    return split
+
+
+def phase_streaming(raw_pair, cycles_per_ms, trace_dir):
+    """Streams A, B and C through StereoDepthEstimatorVideo; returns the
+    numbers to print."""
+    from depthestimation_torch import StereoDepthEstimator, StereoDepthEstimatorVideo
+    from depthestimation_torch.io.threaded import PairStager
+    from depthestimation_torch.metrics import frame_metrics_from_stats
+    from depthestimation_torch.pipeline import StereoPipeline
+
+    result = {}
+
+    # -- A: 40 uint8 1080p frames, fast mode, north-star flags, hh4 --
+    n_a = 40
+    frames_a = drifted(texture_pair(H, W, SHIFT, seed=0), n_a)
+    expect_a = {"cost_volume": (n_a, n_a), "hscan": (n_a, 2 * n_a),
+                "rowsweep": (n_a, n_a), "rowsweep_up": (n_a, n_a)}
+    kw_a = dict(fast_mode=True, depth_dtype="float16")
+    out_a, sum_a = run_stream(frames_a, STREAM_A, expect_a, "A threaded",
+                              use_threading=True, **kw_a)
+    seq_a, sum_seq = run_stream(frames_a, STREAM_A, expect_a, "A sequential",
+                                use_threading=False, **kw_a)
+    for i, (t, s) in enumerate(zip(out_a, seq_a)):
+        if t.dtype != np.float16 or t.shape != (H, W - D) or not np.array_equal(
+                t.view(np.uint16), s.view(np.uint16)):
+            raise AssertionError(f"A: threaded frame {i} differs from sequential")
+    single = StereoDepthEstimator(device="cuda")
+    single.configure_sgbm(**STREAM_A)
+    single.core.fast_mode = True
+    for i in (0, 20, n_a - 1):
+        single.left_source, single.right_source = frames_a[0][i], frames_a[1][i]
+        want = single.estimate_depth()[1].astype(np.float16)
+        if not np.array_equal(out_a[i].view(np.uint16), want.view(np.uint16)):
+            raise AssertionError(f"A: frame {i} differs from the single-pair path")
+        disp = 1000.0 * 0.12 / out_a[i].astype(np.float32)
+        hit = float((np.abs(disp - SHIFT) <= 1.0).mean())
+        log(f"[3d] A frame {i}: == single-pair float16 depth (bit for bit); "
+            f"known shift on {hit:.4%} of pixels")
+        if hit < 0.95:
+            raise AssertionError(f"A: frame {i} known shift on < 95 % of pixels")
+    log("[3d] A: threaded == sequential on all 40 frames (bit for bit)")
+    vid = StereoDepthEstimatorVideo(target_fps=0, device="cuda", **kw_a)
+    vid.configure_sgbm(**STREAM_A)
+    stager = PairStager("cuda")
+    staged = stager.adopt(*stager.stage((frames_a[0][1], frames_a[1][1])))
+    # The host's per-frame metrics work on the thread that enqueues
+    # (float16 -> float32 copy, percentile of the depths).
+    stats = torch.tensor([1.0, 19.0, 21.0, 20.0])
+    metrics_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        frame_metrics_from_stats(stats, out_a[5])
+        metrics_ms.append((time.perf_counter() - t0) * 1e3)
+    result["A"] = dict(sum_a, sequential_fps=sum_seq["throughput_fps"],
+                       metrics_host_ms=float(np.median(metrics_ms)),
+                       **frame_split(vid, *staged, cycles_per_ms, "A", trace_dir))
+    del out_a, seq_a, frames_a
+
+    # -- B: the live smoother on 8 raw frames of the calibrated rig --
+    n_b = 8
+    rig = dict(num_disp=D, sgbm_mode="hh4", **LIVE, **mild_rig(H, W))
+    frames_b = drifted(raw_pair, n_b)
+    expect_b = {"remap": (n_b, n_b), "cost_volume": (n_b, n_b),
+                "hscan": (n_b, 2 * n_b), "rowsweep": (n_b, n_b),
+                "rowsweep_up": (n_b, n_b)}
+    out_b, sum_b = run_stream(frames_b, rig, expect_b, "B threaded",
+                              use_threading=True)
+    ref = StereoPipeline(device="cuda")
+    ref.configure(**rig)
+    for i, (l, r) in enumerate(zip(*frames_b)):
+        want = ref.estimate_depth(l, r)[1]
+        if out_b[i].dtype != np.float32 or not np.array_equal(
+                out_b[i].view(np.uint32), want.view(np.uint32)):
+            raise AssertionError(f"B: frame {i} differs from StereoPipeline's")
+    log(f"[3d] B: all {n_b} frames == StereoPipeline.estimate_depth with the "
+        "temporal carry (float32, bit for bit)")
+    vid = StereoDepthEstimatorVideo(target_fps=0, device="cuda")
+    vid.configure_sgbm(**rig)
+    staged = stager.adopt(*stager.stage((frames_b[0][1], frames_b[1][1])))
+    result["B"] = dict(sum_b, **frame_split(vid, *staged, cycles_per_ms, "B", trace_dir))
+    del out_b, frames_b
+
+    # -- C: card against CPU, 6 small frames, temporal on --
+    frames_c = drifted(texture_pair(96, 320, 9, seed=3), 6)
+    outs = []
+    for device in ("cuda", "cpu"):
+        v = StereoDepthEstimatorVideo(*frames_c, target_fps=0, device=device)
+        v.configure_sgbm(num_disp=32, focal_length=500.0, baseline=0.1, **LIVE)
+        outs.append(list(v.estimate_depth()))
+    if len(outs[0]) != 6 or len(outs[1]) != 6:
+        raise AssertionError("C: frames lost")
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(a, b, rtol=1e-5)
+    log("[3d] C: 6 frames of 96x320, temporal on: card == CPU (depth rtol 1e-5)")
+    result["C"] = {"frames": 6, "rtol": 1e-5}
+    return result
+
+
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--trace-dir", default=None,
+                        help="write phase 3d's profiler traces (Chrome JSON) here")
+    trace_dir = parser.parse_args().trace_dir
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available")
         return 1
@@ -431,8 +700,14 @@ def main() -> int:
         "post_northstar_fast_wls": lambda: pipeline.postprocess_and_depth(
             raw_ns, ncfg, fast_mode=True, guide=pl_),
     }
-    split = {name: round(time_ms(fn, runs=5), 3) for name, fn in stages.items()}
-    log(f"[3a] device ms per stage: {split}")
+    # Each stage's host time to enqueue against its device time, the
+    # sleep before it sized from the enqueue (a fixed 2 ms sleep is
+    # shorter than most of these stages take to enqueue).
+    cycles_per_ms = sleep_cycles_per_ms()
+    split = {}
+    for name, fn in stages.items():
+        split[name] = host_device_split(fn, cycles_per_ms)
+        log(f"[3a] stage {name}: {split[name]}")
     del s, c, swe, raw_m, raw_ns, raw_k, raw_p
 
     # ---- 3b. rectified path: the mild rig, hh4, full calibration ----
@@ -505,6 +780,9 @@ def main() -> int:
     log("[3] ms per 1080p pair: " + ", ".join(
         f"{k} {v:.2f}" for k, v in e2e.items()))
 
+    # ---- 3d. streaming through StereoDepthEstimatorVideo ----
+    streams = phase_streaming((raw_l, raw_r), cycles_per_ms, trace_dir)
+
     # ---- 4. kernels line ----
     # `calls` and `launches` are the counts of one pair of the path named,
     # read in phase 3; ms is per wrapper call, so a kernel's loss per pair
@@ -545,6 +823,7 @@ def main() -> int:
             row["max_abs_err_fractional"] = errs["cost_volume_fractional"]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"streams": streams, "stages": split}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -5,21 +5,29 @@ an NVIDIA H100: plain tensor code is PyTorch, and the TPU's Pallas
 kernels are CUDA C++ kernels written for Hopper (csrc/). The JAX package
 stays the reference; this package imports nothing of it nor of JAX.
 
-It covers the single-pair stereo path behind StereoDepthEstimator:
-grayscale, full-calibration rectification, the SGM matcher in all four
-modes (sgbm_3way, hh4, sgbm, hh) with the BT or census cost, post-filters
-and depth.
+It covers the stereo paths behind StereoDepthEstimator (one pair) and
+StereoDepthEstimatorVideo (a stream of pairs, staged into the card on a
+copy stream by an input thread, read back asynchronously, with per-frame
+metrics): grayscale, full-calibration rectification, the SGM matcher in
+all four modes (sgbm_3way, hh4, sgbm, hh) with the BT or census cost,
+post-filters and depth; plus synthetic scenes, profiling hooks and
+visualization.
 """
 
-from .api import StereoDepthEstimator  # noqa: F401
+from .api import StereoDepthEstimator, StereoDepthEstimatorVideo  # noqa: F401
 from .config import CalibConfig, SGMConfig, config_from_dict, parse_calib_file  # noqa: F401
+from .io.synthetic import synthesize_stereo_pair  # noqa: F401
+from .io.threaded import StereoInputPipeline  # noqa: F401
 from .pipeline import StereoPipeline  # noqa: F401
 
 __all__ = [
     "StereoDepthEstimator",
+    "StereoDepthEstimatorVideo",
+    "StereoInputPipeline",
     "StereoPipeline",
     "SGMConfig",
     "CalibConfig",
     "config_from_dict",
     "parse_calib_file",
+    "synthesize_stereo_pair",
 ]

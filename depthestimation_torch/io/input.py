@@ -1,14 +1,17 @@
-"""Host-side image loading (counterpart of depthestimation_tpu/io/input.py,
-reference depthlib/input.py). Decoding stays on the host; PIL (or imageio)
-is imported only when an image is loaded. Video capture comes with the
-streaming slice.
+"""Host-side input: image loading and synchronized stereo streams
+(counterpart of depthestimation_tpu/io/input.py, reference
+depthlib/input.py). Decoding stays on the host; PIL or imageio is
+imported only when an image, a video file or a camera is opened, so a
+stream of frame iterables needs neither.
 """
 
 from __future__ import annotations
 
+from typing import Iterable, Tuple, Union
+
 import numpy as np
 
-__all__ = ["load_image", "load_stereo_pair"]
+__all__ = ["load_image", "load_stereo_pair", "open_capture", "stereo_stream"]
 
 
 def _area_downscale_np(img: np.ndarray, factor: float) -> np.ndarray:
@@ -57,3 +60,75 @@ def load_stereo_pair(left_image_path, right_image_path, downscale_factor=1.0):
     left = _area_downscale_np(left, downscale_factor)
     right = _area_downscale_np(right, downscale_factor)
     return left, right
+
+
+class _FrameCapture:
+    """Minimal VideoCapture equivalent over imageio-ffmpeg (files/URLs) or a
+    user-provided frame iterable (cameras/synthetic sources for tests)."""
+
+    def __init__(self, source: Union[int, str, Iterable]):
+        self._iter = None
+        self._reader = None
+        if hasattr(source, "__iter__") and not isinstance(source, (str, bytes)):
+            self._iter = iter(source)
+        else:
+            import imageio.v2 as iio
+
+            src = f"<video{source}>" if isinstance(source, int) else source
+            try:
+                self._reader = iio.get_reader(src)
+            except Exception as e:
+                raise RuntimeError(f"Unable to open video source: {source}") from e
+            self._iter = iter(self._reader)
+
+    def read(self):
+        try:
+            frame = next(self._iter)
+            return True, np.asarray(frame)
+        except StopIteration:
+            return False, None
+
+    def release(self):
+        if self._reader is not None:
+            self._reader.close()
+            self._reader = None
+
+    def isOpened(self):
+        return self._iter is not None
+
+
+def open_capture(source) -> _FrameCapture:
+    """Open a capture from camera index, file path, URL or frame iterable
+    (open_capture parity, input.py:50-55)."""
+    cap = _FrameCapture(source)
+    if not cap.isOpened():
+        raise RuntimeError(f"Unable to open video source: {source}")
+    return cap
+
+
+def _read_frame(cap: _FrameCapture, downscale_factor: float) -> np.ndarray:
+    ok, frame = cap.read()
+    if not ok or frame is None:
+        raise RuntimeError("Failed to read frame from video source")
+    return _area_downscale_np(frame, downscale_factor)
+
+
+def stereo_stream(
+    left_source, right_source, downscale_factor: float = 1.0
+) -> Iterable[Tuple[np.ndarray, np.ndarray]]:
+    """Yield synchronized frame pairs; releases captures in finally
+    (stereo_stream parity, input.py:71-95)."""
+    if downscale_factor <= 0 or downscale_factor > 1.0:
+        raise ValueError("downscale_factor must be between 0 and 1.")
+    cap_l = open_capture(left_source)
+    cap_r = open_capture(right_source)
+    try:
+        while True:
+            left = _read_frame(cap_l, downscale_factor)
+            right = _read_frame(cap_r, downscale_factor)
+            yield left, right
+    except RuntimeError:
+        return
+    finally:
+        cap_l.release()
+        cap_r.release()

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu), and the
 bookkeeping their wrappers share.
 
-`nvcc` compiles the sources for sm_90a into one shared library with a
-plain C interface, which is loaded with ctypes. The build runs at first
+`nvcc` compiles the sources for sm_90a, one process per source, all
+started together, and links them into one shared library with a plain C
+interface, which is loaded with ctypes. The build runs at first
 use, into ``build/`` at the repository root, keyed on a hash of the
 sources and flags, so a fresh checkout builds everything on its first
 kernel call and later processes reuse the library.
@@ -27,8 +28,11 @@ __all__ = ["LAUNCHES", "CALLS", "reset_launches", "load_library", "build_log"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_COMPILE = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# Compile and link in one nvcc call (scripts/kernel_turns.py builds its
+# baselines so).
+_FLAGS = [*_COMPILE, "-shared"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures (csrc/*.cu); every function returns cudaError_t.
@@ -78,6 +82,30 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
+def _build(tmp: Path, path: Path) -> None:
+    """Compile every csrc/*.cu with its own nvcc, all started together,
+    link the objects into one library and move it to path."""
+    nvcc = _nvcc()
+    sources = sorted(_CSRC.glob("*.cu"))
+    objs = [tmp / (src.stem + ".o") for src in sources]
+    procs = [subprocess.Popen([nvcc, *_COMPILE, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(sources, objs)]
+    outs = [proc.communicate()[0] for proc in procs]
+    for src, proc, out in zip(sources, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{out}")
+    lib = tmp / "libkernels.so"
+    link = subprocess.run([nvcc, *_ARCH, "-shared", "-o", str(lib), *map(str, objs)],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{link.stdout}{link.stderr}")
+    path.with_suffix(".log").write_text("".join(outs) + link.stdout + link.stderr)
+    os.replace(lib, path)
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library once per process."""
     global _lib
@@ -86,19 +114,10 @@ def load_library() -> ctypes.CDLL:
     path = _lib_path()
     if not path.exists():
         path.parent.mkdir(parents=True, exist_ok=True)
-        # Build under a temporary name and rename, so concurrent processes
-        # never load a half-written library.
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-        os.close(fd)
-        cmd = [_nvcc(), *_FLAGS, "-o", tmp, *map(str, sorted(_CSRC.glob("*.cu")))]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
-        path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, path)
+        # Build in a temporary directory and rename, so concurrent
+        # processes never load a half-written library.
+        with tempfile.TemporaryDirectory(dir=path.parent) as tmp:
+            _build(Path(tmp), path)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

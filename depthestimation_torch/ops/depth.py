@@ -19,8 +19,9 @@ def disparity_to_depth(disp, f_pixels, baseline_m, doffs=0.0, eps=1e-6, max_dept
     adjusted = disp + doffs
     valid = adjusted > eps
     # f*B is rounded to float32 once and divided in float32, as in JAX
-    # (a Python scalar over a tensor would go through a reciprocal).
-    fb = torch.tensor(f_pixels * baseline_m, dtype=torch.float32, device=disp.device)
+    # (a Python scalar over a tensor would go through a reciprocal); a
+    # fill on the device, not a copy from the host, which would wait.
+    fb = torch.full((), f_pixels * baseline_m, dtype=torch.float32, device=disp.device)
     z = torch.where(valid, fb / torch.where(valid, adjusted, 1.0), float("inf"))
     if max_depth is not None:
         z = torch.clamp(z, max=max_depth)

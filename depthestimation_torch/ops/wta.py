@@ -111,7 +111,7 @@ def wta_disparity(
     if uniqueness_ratio > 0:
         near = torch.abs(d_idx - d0[..., None]) <= 1
         competitor = torch.where(
-            near, torch.tensor(sent, dtype=s.dtype, device=dev), s
+            near, torch.full((), sent, dtype=s.dtype, device=dev), s
         ).amin(dim=-1).to(torch.int32)
         invalid = competitor * (100 - uniqueness_ratio) < min_s * 100
 
@@ -128,5 +128,5 @@ def wta_disparity(
     delta16 = torch.where(interior, delta16, 0)
     disp = ((min_disp + d0) * 16 + delta16).to(torch.float32) / 16.0
     return torch.where(
-        invalid, torch.tensor(float(min_disp - 1), device=dev), disp
+        invalid, torch.full((), float(min_disp - 1), device=dev), disp
     )

@@ -211,10 +211,19 @@ class StereoPipeline:
         right = self._tensor(rectified_r).to(torch.float32)
         return raw_disparity(left, right, self.cfg)
 
-    def process_pair(self, left_rect, right_rect):
-        """Full pipeline on an already-rectified pair (_process_pair
-        parity, stereo_core.py:162-200). Returns host numpy arrays
-        (disparity, depth or None) and keeps them on the instance."""
+    def process_pair_async(self, left_rect, right_rect):
+        """Like process_pair, but returns the tensors (disparity, depth or
+        None) on the pipeline's device without waiting for the card, so
+        the streaming facade enqueues frame N+1 while frame N runs
+        (depthestimation_tpu/pipeline.py:348-376).
+
+        Carries the temporal-smoothing state (cfg.temporal_alpha) across
+        calls on the same stream of the card; reset_temporal() clears it.
+        If compute_disparity has been replaced on the instance (the
+        reference's injectable fake-matcher seam,
+        tests/test_postproc_logic.py:19,28), the override feeds the
+        postprocess/depth tail.
+        """
         left = self._tensor(left_rect).to(torch.float32)
         right = self._tensor(right_rect).to(torch.float32)
         prev = self._prev_disp if self.cfg.temporal_alpha > 0 else None
@@ -228,6 +237,14 @@ class StereoPipeline:
         )
         if self.cfg.temporal_alpha > 0:
             self._prev_disp = disp
+        return disp, depth_m
+
+    def process_pair(self, left_rect, right_rect):
+        """Full pipeline on an already-rectified pair (_process_pair
+        parity, stereo_core.py:162-200): process_pair_async, then the
+        host copy. Returns host numpy arrays (disparity, depth or None)
+        and keeps them on the instance."""
+        disp, depth_m = self.process_pair_async(left_rect, right_rect)
         self.disparity_map = disp.cpu().numpy()
         self.depth_map = None if depth_m is None else depth_m.cpu().numpy()
         return self.disparity_map, self.depth_map
@@ -243,3 +260,13 @@ class StereoPipeline:
             left_source, right_source
         )
         return self.process_pair(self.left_rectified, self.right_rectified)
+
+    def estimate_depth_async(self, left_source, right_source):
+        """estimate_depth without the device->host copy: the tensors
+        (disparity, depth or None) on the pipeline's device, so the caller
+        can enqueue the next frame first (depthestimation_tpu/
+        pipeline.py:408-436). With full calibration the pair is rectified
+        first (grayscale, the resize after its RuntimeWarning, one remap
+        launch); nothing on the way waits for the card."""
+        left_r, right_r = self.prepare_rectified(left_source, right_source)
+        return self.process_pair_async(left_r, right_r)
