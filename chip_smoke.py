@@ -49,11 +49,26 @@ Phases (any failure exits non-zero and prints no result):
         one steady frame's host time to enqueue against its device time
         (events behind a sleep kernel sized from the enqueue time) and a
         profiler trace's kernel time;
+     e. the monocular net (plain PyTorch, no kernel of its own):
+        MonoDepthModel.create("small", seed=0) (Depth-Anything-V2-Small's
+        widths, random weights) at 1x518x518x3 on the card against the
+        CPU with cuDNN's TF32 on and off (max abs err over max <= 2e-2 and
+        1e-4), its FLOPs counted by torch's FlopCounterMode and its bound
+        at the card's float32, TF32 and bf16 rates, ms and fps from CUDA
+        events and from the host clock, the profiler's kernel count and
+        the host's enqueue ms; MonocularDepthEstimator("small",
+        device="cuda") on a seeded 1080x1920 RGB image through its array
+        path (the model on the card; 518x924 out, finite, >= 0;
+        preprocessing on the card equal to the CPU's bit for bit; ms per
+        image end to end; one predict_async's kernel count, kernel ms and
+        host enqueue ms); base and large timed at 518x518;
   4. one JSON line {"kernels": [...]}: per kernel the wrapper calls and
      kernel launches counted in phase 3 in one pair of the path named, ms
      per call, its bound, and the loss per pair, calls x (ms - bound_ms);
-  5. one JSON line {"streams": {...}} with phase 3d's numbers, the card's
-     name and power limit, then the last line {"ok": true, "device": {...}}.
+  5. one JSON line {"streams": {...}} with phase 3d's numbers, one JSON
+     line {"mono": {...}} with phase 3e's beside the card's name and power
+     limit, the card's name and power limit, then the last line
+     {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or depthestimation_tpu.
 """
@@ -517,6 +532,125 @@ def phase_streaming(raw_pair, cycles_per_ms, trace_dir):
     return result
 
 
+# Peak rates of one H100 SXM for the mono net's bound (NVIDIA data sheet,
+# dense): float32 outside the tensor cores, TF32 and bf16 tensor cores.
+MONO_PEAKS = {"fp32": OPS_PER_S, "tf32": 495e12, "bf16": 989e12}
+# Card against CPU, max abs diff over the CPU output's max abs value: float32
+# sums in other orders; TF32 keeps 10 mantissa bits (2^-11 a rounded
+# operand) on every convolution, the patch embedding's carried through the
+# blocks and about twenty more in the head.
+MONO_TOL = {False: 1e-4, True: 2e-2}
+
+
+def mono_forward_numbers(net, x, cycles_per_ms, tag):
+    """Median ms and fps of one forward from CUDA events (behind a sleep
+    sized from the enqueue) and from the host clock, with the profiler's
+    kernel count, kernel ms and the host's enqueue ms."""
+
+    def forward():
+        with torch.inference_mode():
+            return net(x)
+
+    split = host_device_split(forward, cycles_per_ms, runs=5)
+
+    def forward_synced():
+        forward()
+        torch.cuda.synchronize()
+
+    wall = host_ms(forward_synced, runs=11)
+    out = {"events_ms": split["device_events_ms"],
+           "events_fps": 1e3 / split["device_events_ms"],
+           "host_clock_ms": wall, "host_clock_fps": 1e3 / wall,
+           "kernels": split["kernels"], "kernel_ms": split["kernel_ms"],
+           "host_enqueue_ms": split["host_ms"],
+           "card_idle_share": split["card_idle_share"]}
+    log(f"[3e] {tag}: {out}")
+    return out
+
+
+def phase_mono(cycles_per_ms, smi):
+    """The monocular path: `small` at 518x518 against the CPU with TF32 on
+    and off, timed; the facade on a 1080p image; `base` and `large` timed
+    once. Returns the numbers to print."""
+    import copy
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from depthestimation_torch import MonocularDepthEstimator
+    from depthestimation_torch.models.mono import MonoDepthModel, preprocess_image
+
+    dev = torch.device("cuda")
+    tf32_default = torch.backends.cudnn.allow_tf32
+    result = {"card": smi, "input": [1, 518, 518, 3]}
+
+    # -- small, the full widths of Depth-Anything-V2-Small, seeded init --
+    cpu_model = MonoDepthModel.create("small", seed=0, image_size=518, device="cpu")
+    x = torch.rand(1, 518, 518, 3, generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        want = cpu_model.net(x)
+    model = MonoDepthModel(net=copy.deepcopy(cpu_model.net)).to_device(dev)
+    xc = x.to(dev)
+    with FlopCounterMode(display=False) as counter, torch.inference_mode():
+        model.net(xc)
+    flops = counter.get_total_flops()
+    counts = counter.get_flop_counts()
+    result["small_flops"] = {
+        "total": flops, "vit": sum(counts["MonoDepthNet.backbone"].values()),
+        "dpt": sum(counts["MonoDepthNet.head"].values())}
+    result["small_bound_ms"] = {k: flops / v * 1e3 for k, v in MONO_PEAKS.items()}
+    log(f"[3e] small at 518x518: {flops / 1e9:.2f} GFLOP (matmuls and convolutions); "
+        f"bound ms {result['small_bound_ms']}")
+    for tf32 in (True, False):
+        torch.backends.cudnn.allow_tf32 = tf32
+        with torch.inference_mode():
+            got = model.net(xc).cpu()
+        err = float((got - want).abs().max() / want.abs().max())
+        log(f"[3e] small, cuDNN TF32 {tf32}: card vs CPU max abs err / max "
+            f"{err:.3e} (tolerance {MONO_TOL[tf32]})")
+        if not err <= MONO_TOL[tf32]:
+            raise AssertionError(f"mono small: card differs from the CPU, TF32 {tf32}")
+        key = "small_tf32" if tf32 else "small_fp32"
+        result[key] = dict(mono_forward_numbers(model.net, xc, cycles_per_ms, key),
+                           rel_err_vs_cpu=err, tolerance=MONO_TOL[tf32])
+    torch.backends.cudnn.allow_tf32 = tf32_default
+
+    # -- the facade, a seeded 1080x1920 RGB image through its array path --
+    est = MonocularDepthEstimator("small", device="cuda")
+    if est.model.device != dev or not next(est.model.net.parameters()).is_cuda:
+        raise AssertionError("mono facade: the model is not on the card")
+    img = np.random.default_rng(7).integers(0, 256, (1080, 1920, 3), dtype=np.uint8)
+    pre = preprocess_image(img, device=dev)
+    if pre.device.type != "cuda" or not torch.equal(pre.cpu(), preprocess_image(img)):
+        raise AssertionError("mono: the card's preprocessing differs from the CPU's")
+    log("[3e] preprocess 1080x1920 -> 518x924: card == CPU (bit for bit)")
+    depth = est._estimate_image(img)
+    if depth.shape != (518, 924) or not np.isfinite(depth).all() or (depth < 0).any():
+        raise AssertionError(f"mono facade: depth {depth.shape} not finite and >= 0")
+    facade_ms = host_ms(lambda: est._estimate_image(img))
+    split = host_device_split(lambda: est.model.predict_async(img), cycles_per_ms)
+    result["facade_1080p"] = {"out_shape": list(depth.shape), "ms_per_image": facade_ms,
+                              "cudnn_tf32": tf32_default,
+                              "predict_async": {k: split[k] for k in (
+                                  "kernels", "kernel_ms", "host_ms", "card_idle_share")}}
+    log(f"[3e] facade 1080x1920 -> {depth.shape}: finite, >= 0; "
+        f"{facade_ms:.2f} ms per image end to end; one predict_async (upload, "
+        f"preprocessing, forward): {split}")
+    del est, model, cpu_model
+
+    # -- base and large at 518x518, random weights, no CPU comparison --
+    for size in ("base", "large"):
+        net = MonoDepthModel.create(size, seed=0, device=dev).net
+        with FlopCounterMode(display=False) as counter, torch.inference_mode():
+            out = net(xc)
+        if out.shape != (1, 518, 518) or not torch.isfinite(out).all():
+            raise AssertionError(f"mono {size}: output {tuple(out.shape)} not finite")
+        result[size] = dict(mono_forward_numbers(net, xc, cycles_per_ms, size),
+                            flops=counter.get_total_flops(), cudnn_tf32=tf32_default)
+        del net, out
+        torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     import argparse
 
@@ -783,6 +917,9 @@ def main() -> int:
     # ---- 3d. streaming through StereoDepthEstimatorVideo ----
     streams = phase_streaming((raw_l, raw_r), cycles_per_ms, trace_dir)
 
+    # ---- 3e. the monocular net and MonocularDepthEstimator ----
+    mono_numbers = phase_mono(cycles_per_ms, smi)
+
     # ---- 4. kernels line ----
     # `calls` and `launches` are the counts of one pair of the path named,
     # read in phase 3; ms is per wrapper call, so a kernel's loss per pair
@@ -824,6 +961,7 @@ def main() -> int:
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"streams": streams, "stages": split}))
+    print(json.dumps({"mono": mono_numbers}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,9 +1,9 @@
 """User-facing estimator facades (counterpart of depthestimation_tpu/api.py).
 
-API-capability parity with the reference's StereoDepthEstimator and
-StereoDepthEstimatorVideo (depthlib/StereoDepthEstimator.py,
-StereoDepthEstimatorVideo.py). The monocular facade comes with a later
-slice.
+API-capability parity with the reference's StereoDepthEstimator,
+StereoDepthEstimatorVideo and MonocularDepthEstimator
+(depthlib/StereoDepthEstimator.py, StereoDepthEstimatorVideo.py,
+MonocularDepthEstimator.py).
 """
 
 from __future__ import annotations
@@ -15,12 +15,12 @@ import numpy as np
 import torch
 
 from . import viz
-from .io.input import load_stereo_pair, stereo_stream
+from .io.input import _area_downscale_np, load_image, load_stereo_pair, stereo_stream
 from .io.threaded import PairStager, StereoInputPipeline
 from .metrics import MetricsAggregator, frame_metrics_from_stats
-from .pipeline import StereoPipeline
+from .pipeline import StereoPipeline, _resolve_device
 
-__all__ = ["StereoDepthEstimator", "StereoDepthEstimatorVideo"]
+__all__ = ["StereoDepthEstimator", "StereoDepthEstimatorVideo", "MonocularDepthEstimator"]
 
 
 class StereoDepthEstimator:
@@ -359,3 +359,63 @@ class StereoDepthEstimatorVideo:
                 self._emit(depth_m, measured_fps)
         finally:
             viz._LiveWindow.remove_stop_listener(_on_esc)
+
+
+class MonocularDepthEstimator:
+    """Monocular depth through the ViT+DPT net (Depth Anything V2).
+
+    Parity: depthlib/MonocularDepthEstimator.py:8-100 -- model load at
+    init, a warm-up forward on a 224x224 dummy, per-image inference with
+    the output inverted (max - depth) for display
+    (MonocularDepthEstimator.py:73). model_path is a size preset
+    ('small'/'base'/'large', random weights), a checkpoint directory of
+    MonoDepthModel.save() or an HF Depth-Anything snapshot. device
+    defaults to "cuda" and raises RuntimeError when no card is usable.
+    """
+
+    def __init__(self, model_path, device="cuda", downscale_factor: float = 1.0):
+        if not model_path:
+            raise ValueError("Model path must be provided.")
+        self.model_path = model_path
+        self.device = _resolve_device(device)
+        self.downscale_factor = downscale_factor
+        self.model = None
+        self.depth_map = None
+        self.load_model()
+
+    def load_model(self):
+        from .models.mono import MonoDepthModel
+
+        print(f"Loading model from {self.model_path}")
+        self.model = MonoDepthModel.load(self.model_path, device=self.device)
+        self.warmup()
+
+    def warmup(self):
+        if self.model is None:
+            raise RuntimeError("Model is not loaded properly.")
+        print("Warming up the model")
+        self.model.predict(np.full((224, 224, 3), 255, dtype=np.uint8))
+
+    def estimate_depth(self, image_path) -> np.ndarray:
+        if self.model is None:
+            raise RuntimeError("Model is not loaded properly.")
+        print("Estimating depth for the provided image")
+        return self._estimate_image(load_image(image_path))
+
+    def _estimate_image(self, image: np.ndarray) -> np.ndarray:
+        """Everything estimate_depth does after decoding the file: area
+        downscale, predict, then invert for display (ref :73)."""
+        if self.downscale_factor != 1.0:
+            image = _area_downscale_np(image, self.downscale_factor)
+        depth = self.model.predict(image)
+        depth = np.max(depth) - depth
+        self.depth_map = depth
+        return depth
+
+    def visualize_depth(self):
+        if self.depth_map is None:
+            raise RuntimeError(
+                "Depth map is not available. Please run estimate_depth first."
+            )
+        print("Visualizing depth map")
+        viz.visualize_depth(self.depth_map, show_meter=False)

@@ -22,7 +22,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["SGMConfig", "CalibConfig", "parse_calib_file", "config_from_dict"]
+__all__ = ["SGMConfig", "CalibConfig", "parse_calib_file", "config_from_dict",
+           "DEFAULT_CONFIG"]
 
 # Aggregation path-topology names. The reference delegates to OpenCV modes
 # ('sgbm', 'hh', 'sgbm_3way', 'hh4' — stereo_core.py:55-61); we map them onto
@@ -298,6 +299,9 @@ _EXTRA_KEYS = frozenset({
 # Fields of the JAX package's SGMConfig that only choose between its XLA
 # and Pallas routes.
 _JAX_ONLY_KEYS = frozenset({"compute_dtype", "use_pallas"})
+
+DEFAULT_CONFIG = SGMConfig()
+
 
 def config_from_dict(d: dict) -> SGMConfig:
     """Build an SGMConfig from a plain dict shaped like

@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Iterable, Tuple, Union
 
 import numpy as np
+import torch
 
 __all__ = ["load_image", "load_stereo_pair", "open_capture", "stereo_stream"]
 
@@ -26,9 +27,12 @@ def _area_downscale_np(img: np.ndarray, factor: float) -> np.ndarray:
         pil = Image.fromarray(img)
         return np.asarray(pil.resize((nw, nh), Image.Resampling.BOX))
     except ImportError:
-        # Without PIL: strided subsampling (integer factors only).
-        sy, sx = max(h // nh, 1), max(w // nw, 1)
-        return img[::sy, ::sx][:nh, :nw]
+        # Without PIL: the JAX package's area resize (linear, antialiased)
+        # over the whole image, for any factor.
+        from ..ops import color
+
+        return color.resize_area(torch.from_numpy(np.ascontiguousarray(img)),
+                                 (nh, nw)).numpy()
 
 
 def load_image(path) -> np.ndarray:

@@ -42,8 +42,9 @@ def _with_depth_stats(m: FrameMetrics, depth) -> FrameMetrics:
     """Fill the depth fields of m from a host depth map (or leave them
     None without one)."""
     if depth is not None:
-        # float16 depth (streaming depth_dtype='float16') overflows
-        # np.percentile's in-dtype lerp; stats run in float32.
+        # float16 depth (streaming depth_dtype='float16') would lose
+        # precision in np.percentile's in-dtype interpolation; stats run
+        # in float32.
         z = np.asarray(depth, dtype=np.float32)
         zvalid = np.isfinite(z) & (z > 0)
         m.depth_invalid_pct = float(100.0 * (~zvalid).mean())

@@ -22,10 +22,10 @@ import torch
 
 from .calib import RectificationCache
 from .config import SGMConfig
-from .ops import color, cuda_sgm, depth as depth_ops, filters, remap, wls
+from .ops import color, costs, cuda_sgm, depth as depth_ops, filters, remap, sgm, wls
 
-__all__ = ["StereoPipeline", "raw_disparity", "postprocess_and_depth",
-           "stereo_depth_fn"]
+__all__ = ["StereoPipeline", "compute_disparity_volume", "raw_disparity",
+           "postprocess_and_depth", "stereo_depth_fn"]
 
 
 def _resolve_device(device) -> torch.device:
@@ -38,6 +38,16 @@ def _resolve_device(device) -> torch.device:
             "PyTorch versions of the kernels on the CPU"
         )
     return device
+
+
+def compute_disparity_volume(left, right, cfg: SGMConfig) -> torch.Tensor:
+    """Rectified grayscale pair -> aggregated cost volume (H, W, D)
+    float32, from the plain stages, as the JAX package's XLA route gives
+    it (census sums the block_size^2 window, as the kernels do; see
+    costs.cost_volume). The matcher's kernels compute the same sum in
+    integer storage (ops/cuda_sgm.py)."""
+    c = costs.cost_volume(left, right, cfg)
+    return sgm.aggregate(c, cfg.p1, cfg.p2, cfg.num_paths)
 
 
 def raw_disparity(left, right, cfg: SGMConfig, matcher=cuda_sgm.sgm_disparity):

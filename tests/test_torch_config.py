@@ -25,6 +25,10 @@ PORT_MODULES = [
     "depthestimation_torch.config",
     "depthestimation_torch.pipeline",
     "depthestimation_torch.io.input",
+    "depthestimation_torch.models.convert",
+    "depthestimation_torch.models.dpt",
+    "depthestimation_torch.models.mono",
+    "depthestimation_torch.models.vit",
     "depthestimation_torch.ops.color",
     "depthestimation_torch.ops.costs",
     "depthestimation_torch.ops.cuda_build",
@@ -70,6 +74,11 @@ def test_config_updated_matches_jax(kwargs, downscale):
     assert config.config_from_dict(dataclasses.asdict(want)) == got
     if kwargs.get("num_disp") == 280:
         assert got.num_disp == 144
+
+
+def test_default_config_matches_jax():
+    assert config.DEFAULT_CONFIG == config.SGMConfig()
+    assert port_dict(config.DEFAULT_CONFIG) == jax_dict(jconfig.DEFAULT_CONFIG)
 
 
 def test_parse_calib_file_matches_jax():

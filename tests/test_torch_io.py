@@ -14,11 +14,13 @@ import pytest
 import torch
 
 from depthestimation_tpu import metrics as jmetrics
+from depthestimation_tpu.ops import color as jcolor
 from depthestimation_tpu import viz as jviz
 from depthestimation_tpu.io import synthetic as jsynthetic
 import depthestimation_torch as dt
 from depthestimation_torch import metrics, profiling, viz
-from depthestimation_torch.io import synthetic
+from depthestimation_torch.io import input as port_input, synthetic
+from depthestimation_torch.ops import color
 from depthestimation_torch.io.threaded import StereoInputPipeline
 
 
@@ -207,3 +209,34 @@ def test_profiling_hooks(tmp_path):
             torch.ones(64).sum()
     assert any(e.name == "stage_a" for e in prof.events())
     assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
+
+
+def test_top_level_exports_match_jax():
+    """Every name the JAX package exports at its top level, the port
+    exports too; the visualize_* functions are viz's."""
+    import depthestimation_tpu as det
+
+    assert set(det.__all__) <= set(dt.__all__)
+    for name in dt.__all__:
+        assert getattr(dt, name) is not None, name
+    for name in ("visualize_stereo_pair", "visualize_disparity", "visualize_depth",
+                 "visualize_disparity_and_depth"):
+        assert getattr(dt, name) is getattr(viz, name)
+
+
+def test_area_downscale_without_pil_covers_the_image(monkeypatch):
+    """Without PIL, a downscale by a factor not of the form 1/n averages
+    over the whole image (the JAX package's area resize) instead of
+    subsampling and cropping it. Equal to the port's color.resize_area;
+    within one level of JAX's (float32 sums in another order can round a
+    value near .5 the other way)."""
+    import sys
+
+    img = np.random.default_rng(0).integers(0, 256, (100, 160, 3), dtype=np.uint8)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    got = port_input._area_downscale_np(img, 0.37)
+    assert got.shape == (37, 59, 3) and got.dtype == np.uint8
+    want = color.resize_area(torch.from_numpy(img), (37, 59)).numpy()
+    np.testing.assert_array_equal(got, want)
+    jax_out = np.asarray(jcolor.resize_area(img, (37, 59))).astype(np.int16)
+    assert np.abs(got.astype(np.int16) - jax_out).max() <= 1

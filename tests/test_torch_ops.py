@@ -49,6 +49,31 @@ def disparity_map(h, w, seed):
     return d
 
 
+@pytest.mark.parametrize("shape,dtype,how", [
+    ((40, 60, 3), np.uint8, 0.5),        # downscale: int truncation of h*f
+    ((41, 67), np.uint8, 0.37),
+    ((30, 50), np.float32, (17, 23)),    # resize_area to a size
+    ((30, 50, 3), np.float32, (30, 20)),  # one axis kept
+])
+def test_resize_area_and_downscale_match_jax(shape, dtype, how):
+    """jax.image.resize 'linear' with antialias through the weight
+    matrices: float output within 1e-4 (255-scale values, float32 sums in
+    another order); uint8 output equal after rounding."""
+    rng = np.random.default_rng(11)
+    img = rng.integers(0, 256, shape).astype(dtype)
+    if isinstance(how, float):
+        want = np.asarray(jcolor.downscale(jnp.asarray(img), how))
+        got = color.downscale(t(img), how).numpy()
+    else:
+        want = np.asarray(jcolor.resize_area(jnp.asarray(img), how))
+        got = color.resize_area(t(img), how).numpy()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if dtype == np.uint8:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
 def test_to_grayscale_exact():
     rng = np.random.default_rng(1)
     rgb = rng.integers(0, 256, (40, 200, 3)).astype(np.uint8)

@@ -48,6 +48,21 @@ def test_raw_disparity_exact(kw):
     assert (np.abs(want[:, kw["num_disp"]:] - SHIFT) <= 0.5).mean() > 0.9
 
 
+@pytest.mark.parametrize("mode", ["sgbm_3way", "hh4"])
+def test_compute_disparity_volume_exact(mode):
+    """The aggregated volume S of the plain stages, BT cost, integer pair:
+    exact against JAX (float32 sums of integers far below 2**24)."""
+    left, right = textured_pair(24, 64, 5, seed=4)
+    jcfg = jconfig.SGMConfig(num_disp=16, sgbm_mode=mode)
+    cfg = config.config_from_dict(dataclasses.asdict(jcfg))
+    want = np.asarray(jpipeline.compute_disparity_volume(
+        left.astype(np.float32), right.astype(np.float32), jcfg))
+    got = pipeline.compute_disparity_volume(torch.tensor(left, dtype=torch.float32),
+                                            torch.tensor(right, dtype=torch.float32), cfg)
+    assert got.shape == (24, 64, 16) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.fixture(scope="module")
 def png_pair(tmp_path_factory):
     from PIL import Image

@@ -171,8 +171,8 @@ def test_resize_bilinear_matches_jax(out_hw):
     want = np.asarray(jcolor.resize_bilinear(jnp.asarray(img), out_hw))
     got = color.resize_bilinear(torch.tensor(img), out_hw)
     assert got.shape == out_hw and got.dtype == torch.float32
-    wy = color._linear_weights(48, out_hw[0], "cpu").double().numpy()
-    wx = color._linear_weights(200, out_hw[1], "cpu").double().numpy()
+    wy = color.compute_weight_mat(48, out_hw[0], antialias=False).double().numpy()
+    wx = color.compute_weight_mat(200, out_hw[1], antialias=False).double().numpy()
     np.testing.assert_allclose(got.numpy(), wy.T @ img.astype(np.float64) @ wx,
                                rtol=0, atol=1e-4)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-3)
