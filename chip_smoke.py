@@ -62,12 +62,32 @@ Phases (any failure exits non-zero and prints no result):
         preprocessing on the card equal to the CPU's bit for bit; ms per
         image end to end; one predict_async's kernel count, kernel ms and
         host enqueue ms); base and large timed at 518x518;
+     f. the mono training step (models/train.py) over an NCCL group of one
+        rank, mesh (1, 1, 1): `small` (seeded, Depth-Anything-V2-Small's
+        widths) on seeded 4x518x518x3 images and targets in [0.5, 2];
+        one make_train_step against the plain step on the CPU with TF32
+        off (TRAIN_TOL); 5 steps with finite, falling losses; ms per step
+        (events and host clock), images/s, peak memory, the step's kernel
+        count and host enqueue ms;
+     g. the parallel layer (parallel/shard.py) on that mesh: batch_pipeline
+        over 4 of phase 3's integer 1080p pairs (sgbm_3way, BT, fast mode),
+        driven with the counts set to 0 just before and read just after,
+        which must be exactly K1 1, K2 1 call / 2 launches, K3 1 a frame,
+        each frame equal bit for bit to raw_disparity +
+        postprocess_and_depth; disp_sharded_sgm equal bit for bit to the
+        kernels' matcher; the tile function at 4 tiles with DEFAULT_HALO
+        run tile by tile against the whole image (hh4; mismatch at the
+        seams and overall < 0.5 %); predict_sharded equal to the net's
+        forward; with several GPUs, batch_pipeline and disp_sharded_sgm
+        again with one process per GPU;
   4. one JSON line {"kernels": [...]}: per kernel the wrapper calls and
      kernel launches counted in phase 3 in one pair of the path named, ms
-     per call, its bound, and the loss per pair, calls x (ms - bound_ms);
+     per call, its bound, the loss per pair, calls x (ms - bound_ms), and
+     its launches in phase 3g's batch_pipeline;
   5. one JSON line {"streams": {...}} with phase 3d's numbers, one JSON
      line {"mono": {...}} with phase 3e's beside the card's name and power
-     limit, the card's name and power limit, then the last line
+     limit, one JSON line {"train": {...}, "parallel": {...}} with phases
+     3f and 3g's, the card's name and power limit, then the last line
      {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or depthestimation_tpu.
@@ -346,6 +366,34 @@ def sleep_cycles_per_ms() -> float:
     return 10_000_000 / start.elapsed_time(end)
 
 
+# Kernel classes by name, first match wins: cuDNN convolutions (forward,
+# data and weight gradients; their implicit GEMMs carry "gemm" and "xmma"
+# too, so they are matched first), cuBLAS/CUTLASS matrix products, NCCL,
+# the optimizer's fused passes, the softmax.
+KERNEL_CLASSES = (("conv", ("conv", "cudnn", "wgrad", "dgrad", "fprop", "implicit")),
+                  ("gemm", ("gemm", "cutlass", "xmma", "cublas")),
+                  ("nccl", ("nccl",)), ("optimizer", ("multi_tensor", "adam")),
+                  ("softmax", ("softmax",)))
+
+
+def kernel_classes(kernels) -> dict:
+    """Kernel ms of a profiler trace's kernels summed by KERNEL_CLASSES,
+    the rest under "other" (elementwise, reductions, copies), and the
+    five kernel names with the most ms (name cut to 90 characters, ms,
+    count) under "top"."""
+    out, by_name = {}, {}
+    for e in kernels:
+        name = e.name.lower()
+        cls = next((c for c, keys in KERNEL_CLASSES if any(k in name for k in keys)), "other")
+        ms = e.time_range.elapsed_us() / 1e3
+        out[cls] = out.get(cls, 0.0) + ms
+        total, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (total + ms, count + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    out["top"] = [(name[:90], ms, count) for name, (ms, count) in top]
+    return out
+
+
 def host_device_split(fn, cycles_per_ms, trace_dir=None, runs=3):
     """Host ms to enqueue fn() against the card's ms to run it.
 
@@ -358,7 +406,8 @@ def host_device_split(fn, cycles_per_ms, trace_dir=None, runs=3):
       time from its first kernel's start to its last one's end, and its
       kernel count, from a torch.profiler trace of one call enqueued from
       an idle card (0 if the profiler saw no device activity), written
-      as a Chrome trace under trace_dir when one is given.
+      as a Chrome trace under trace_dir when one is given;
+      kernel_ms_by_class, that kernel time by kernel_classes.
     Medians of `runs`, after two warm-up calls. A stream's launch queue is
     finite: when fn() makes more launches than it holds, the host waits
     for the card once it is full, so host_behind_sleep_ms then runs into
@@ -401,7 +450,10 @@ def host_device_split(fn, cycles_per_ms, trace_dir=None, runs=3):
     with tracer as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # The device timeline also carries user-annotation ranges (the
+    # optimizer's record_function spans); those are not kernels.
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     kernel_us = sum(e.time_range.elapsed_us() for e in kernels)
     span_us = (max(e.time_range.end for e in kernels)
                - min(e.time_range.start for e in kernels)) if kernels else 0
@@ -409,7 +461,8 @@ def host_device_split(fn, cycles_per_ms, trace_dir=None, runs=3):
              "host_behind_sleep_ms": float(np.median(busy)),
              "device_events_ms": float(np.median(dev)),
              "kernel_ms": kernel_us / 1e3, "span_ms": span_us / 1e3,
-             "kernels": len(kernels), "sleep_ms": sleep_ms}
+             "kernels": len(kernels), "sleep_ms": sleep_ms,
+             "kernel_ms_by_class": kernel_classes(kernels)}
     # The profiler slows the host's launches, so the idle share inside
     # the traced call reads higher than card_idle_share.
     split["card_idle_share"] = (max(0.0, 1.0 - split["kernel_ms"] / split["host_ms"])
@@ -648,6 +701,269 @@ def phase_mono(cycles_per_ms, smi):
                             flops=counter.get_total_flops(), cudnn_tf32=tf32_default)
         del net, out
         torch.cuda.empty_cache()
+    return result
+
+
+# ---- 3f. the mono training step ----
+TRAIN_BATCH, TRAIN_HW, TRAIN_LR, TRAIN_STEPS = 4, 518, 1e-4, 5
+# The card's step is held against the CPU's, TF32 off, with the head's
+# output bias raised to 2 so that every prediction is clear of the final
+# ReLU's kink (checked on the CPU: min > 0.1). At the seeded init part of
+# the outputs sit at that kink, where SiLog's gradient is discontinuous (an
+# output of 1e-8 on one device and 0 on the other weighs 1 / (pred + 1e-6)
+# on one side only), so there the gradients are reported, not held.
+# Tolerances: the loss to 1e-5 relative; gradients per parameter to 1e-3
+# of its max |g| (float32 sums over 4 x 518 x 518 pixels in other orders);
+# weights after the step to 1e-2 * lr where the CPU's gradient is above the
+# gradient tolerance, else to 2 * lr (Adam's first step moves a weight by
+# about lr * sign(g), and a noise-level g's sign is either).
+TRAIN_OUT_BIAS = 2.0
+TRAIN_TOL = {"loss": 1e-5, "grad": 1e-3, "weight": 1e-2 * TRAIN_LR,
+             "noise_weight": 2 * TRAIN_LR * (1 + 1e-3)}
+
+
+def _train_step_card_vs_cpu(net, mesh, images, targets):
+    """One make_train_step on the card against the plain step on the CPU
+    (SiLog over the whole batch, backward, AdamW with optax.adamw's
+    defaults, every parameter decayed), TF32 off. Returns the errors and
+    the CPU's predictions' minimum and share at 0."""
+    import copy
+
+    from depthestimation_torch.models import train
+
+    hw = images.shape[1:3]
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    local, opt, shardings = train.make_sharded_train_state(net, mesh, hw, TRAIN_LR, seed=None)
+    loss = float(train.make_train_step(local, opt, mesh, shardings)(images, targets))
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    ref = copy.deepcopy(net)
+    ref_opt = torch.optim.AdamW(ref.parameters(), lr=TRAIN_LR, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=1e-4)
+    t0 = time.perf_counter()
+    t = torch.from_numpy(targets)
+    pred = ref(torch.from_numpy(images))
+    ref_loss = train.silog_loss(pred, t, t > 0)
+    ref_loss.backward()
+    ref_opt.step()
+    cpu_s = time.perf_counter() - t0
+    out = {"loss": loss, "cpu_loss": float(ref_loss.detach()),
+           "pred_min": float(pred.detach().min()),
+           "pred_zero_share": float((pred.detach() == 0).float().mean()),
+           "grad_rel_err": 0.0, "weight_err_firm": 0.0, "weight_err_all": 0.0,
+           "cpu_step_s": cpu_s}
+    out["loss_rel_err"] = abs(loss - out["cpu_loss"]) / abs(out["cpu_loss"])
+    ref_params = dict(ref.named_parameters())
+    for name, p in local.named_parameters():
+        g = ref_params[name].grad
+        out["grad_rel_err"] = max(out["grad_rel_err"],
+                                  float((p.grad.cpu() - g).abs().max() / g.abs().max()))
+        diff = (p.detach().cpu() - ref_params[name].detach()).abs()
+        firm = g.abs() > TRAIN_TOL["grad"] * g.abs().max()
+        if firm.any():
+            out["weight_err_firm"] = max(out["weight_err_firm"], float(diff[firm].max()))
+        out["weight_err_all"] = max(out["weight_err_all"], float(diff.max()))
+    return out
+
+
+def phase_train(cycles_per_ms, smi):
+    """make_train_step on `small` at 4x518x518 over an NCCL group of one
+    rank (mesh (1, 1, 1)): one step against the plain step on the CPU
+    (TF32 off), TRAIN_STEPS steps with a falling loss, and the step's
+    times, memory and kernel count. Returns (mesh, the numbers to print)."""
+    import copy
+
+    import torch.distributed as dist
+
+    from depthestimation_torch.models import train
+    from depthestimation_torch.models.mono import MonoDepthModel
+    from depthestimation_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((1, 1, 1))
+    if dist.get_backend() != "nccl" or mesh.device_type != "cuda":
+        raise AssertionError(f"train: group {dist.get_backend()}, mesh {mesh.device_type}")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    hw = (TRAIN_HW, TRAIN_HW)
+    images = rng.uniform(0, 1, (TRAIN_BATCH, *hw, 3)).astype(np.float32)
+    targets = rng.uniform(0.5, 2.0, (TRAIN_BATCH, *hw)).astype(np.float32)
+    net = MonoDepthModel.create("small", seed=0, image_size=TRAIN_HW, device="cpu").net
+    result = {"card": smi, "batch": [TRAIN_BATCH, *hw, 3], "lr": TRAIN_LR, "mesh": [1, 1, 1],
+              "backend": dist.get_backend(), "tolerance": TRAIN_TOL}
+
+    # -- one step, card against CPU, TF32 off: held clear of the ReLU's
+    # kink, reported at the seeded init --
+    lifted = copy.deepcopy(net)
+    with torch.no_grad():
+        lifted.head.head_out.bias.fill_(TRAIN_OUT_BIAS)
+    held = _train_step_card_vs_cpu(lifted, mesh, images, targets)
+    result["card_vs_cpu"] = dict(held, head_out_bias=TRAIN_OUT_BIAS)
+    log(f"[3f] one step, TF32 off, output bias {TRAIN_OUT_BIAS}, card vs CPU: {held}")
+    if not (held["pred_min"] > 0.1 and held["loss_rel_err"] <= TRAIN_TOL["loss"]
+            and held["grad_rel_err"] <= TRAIN_TOL["grad"]
+            and held["weight_err_firm"] <= TRAIN_TOL["weight"]
+            and held["weight_err_all"] <= TRAIN_TOL["noise_weight"]):
+        raise AssertionError("train: the card's step differs from the CPU's")
+    result["card_vs_cpu_seeded_init"] = _train_step_card_vs_cpu(net, mesh, images, targets)
+    log(f"[3f] one step at the seeded init (reported, not held): "
+        f"{result['card_vs_cpu_seeded_init']}")
+    del lifted
+
+    # -- TRAIN_STEPS steps from the seeded weights, PyTorch's defaults --
+    xc = torch.from_numpy(images).to(dev)
+    tc = torch.from_numpy(targets).to(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    local, opt, shardings = train.make_sharded_train_state(net, mesh, hw, TRAIN_LR, seed=None)
+    step = train.make_train_step(local, opt, mesh, shardings)
+    losses = [float(step(xc, tc)) for _ in range(TRAIN_STEPS)]
+    result["losses"] = losses
+    result["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"[3f] {TRAIN_STEPS} steps: losses {losses}; peak memory "
+        f"{result['max_memory_allocated_bytes'] / 2**30:.2f} GiB")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses {losses} not finite and falling")
+
+    # -- times of one step (the card keeps training) --
+    split = host_device_split(lambda: step(xc, tc), cycles_per_ms)
+    wall = host_ms(lambda: float(step(xc, tc)), runs=5)
+    result["step"] = {"events_ms": split["device_events_ms"], "host_clock_ms": wall,
+                      "images_per_s_events": TRAIN_BATCH * 1e3 / split["device_events_ms"],
+                      "images_per_s_host_clock": TRAIN_BATCH * 1e3 / wall,
+                      "kernels": split["kernels"], "kernel_ms": split["kernel_ms"],
+                      "kernel_ms_by_class": split["kernel_ms_by_class"],
+                      "host_enqueue_ms": split["host_ms"],
+                      "card_idle_share": split["card_idle_share"],
+                      "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+                      "matmul_tf32": torch.backends.cuda.matmul.allow_tf32}
+    log(f"[3f] one step: {result['step']}")
+    del local, opt, step, xc, tc
+    torch.cuda.empty_cache()
+    return mesh, result
+
+
+# ---- 3g. the parallel layer ----
+TILE_SEAM_ROWS = 8  # rows each side of a seam counted as the seam (tests/test_sharding.py)
+
+
+def _frames(n, dev):
+    """n integer texture pairs (phase 3's, brightness drifted +i) as
+    (n, H, W) float32 grayscale on dev."""
+    return tuple(torch.tensor(np.stack([img[..., 0] for img in side]), dtype=torch.float32,
+                              device=dev)
+                 for side in drifted(texture_pair(H, W, SHIFT, seed=0), n))
+
+
+def _check_batch_and_disp(mesh_batch, mesh_lanes, lb, rb, tag):
+    """batch_pipeline on this rank's frames, each frame equal bit for bit
+    to raw_disparity + postprocess_and_depth and launching K1 1, K2 1/2,
+    K3 1; disp_sharded_sgm on frame 0 equal to the kernels' matcher.
+    Returns (counts, disp_sharded_sgm ms)."""
+    from depthestimation_torch import SGMConfig
+    from depthestimation_torch.ops import cuda_sgm
+    from depthestimation_torch.parallel import shard
+    from depthestimation_torch.pipeline import postprocess_and_depth, raw_disparity
+
+    cfg = SGMConfig(num_disp=D, focal_length=1000.0, baseline=0.1)
+    run = shard.batch_pipeline(mesh_batch, cfg, fast_mode=True)
+    cuda_sgm.reset_launches()
+    disp, depth = run(lb, rb)
+    torch.cuda.synchronize()
+    n = lb.shape[0]
+    counts = counted()
+    expected = {"cost_volume": (n, n), "hscan": (n, 2 * n), "rowsweep": (n, n)}
+    log(f"[3g] {tag} batch_pipeline, {n} frames: (calls, launches) {counts}")
+    if counts != expected:
+        raise AssertionError(f"{tag} batch_pipeline made {counts}, expected {expected}")
+    for i in range(n):
+        want = postprocess_and_depth(raw_disparity(lb[i], rb[i], cfg), cfg, fast_mode=True)
+        if not (torch.equal(disp[i], want[0]) and torch.equal(depth[i], want[1])):
+            raise AssertionError(f"{tag} batch_pipeline frame {i} differs from the single pair")
+    ns = SGMConfig(num_disp=D, speckle_window_size=0)
+    fn = shard.disp_sharded_sgm(mesh_lanes, ns)
+    t0 = time.perf_counter()
+    got = fn(lb[0], rb[0])
+    torch.cuda.synchronize()
+    sgm_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(got, raw_disparity(lb[0], rb[0], ns)):
+        raise AssertionError(f"{tag} disp_sharded_sgm differs from the kernels' matcher")
+    log(f"[3g] {tag}: every frame == raw_disparity + postprocess_and_depth (bit for bit); "
+        f"disp_sharded_sgm == the kernels' matcher (bit for bit), {sgm_ms:.1f} ms")
+    return counts, sgm_ms
+
+
+def _multi_gpu_rank(rank, world, port):
+    """One rank of the one-process-per-GPU check (torch.multiprocessing)."""
+    import torch.distributed as dist
+
+    from depthestimation_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    initialize_distributed(f"localhost:{port}", world, rank)
+    dev = torch.device("cuda", rank)
+    lb, rb = _frames(world, dev)
+    _check_batch_and_disp(make_mesh((world, 1, 1)), make_mesh((1, 1, world)),
+                          lb[rank:rank + 1], rb[rank:rank + 1], f"rank {rank}/{world}")
+    dist.destroy_process_group()
+
+
+def phase_parallel(mesh):
+    """batch_pipeline, disp_sharded_sgm, the tile function tile by tile
+    and predict_sharded on the one-rank mesh; with several GPUs, the first
+    two again with one process per GPU. Returns the numbers to print."""
+    import socket
+
+    from depthestimation_torch import SGMConfig
+    from depthestimation_torch.models.mono import MonoDepthModel
+    from depthestimation_torch.parallel import shard
+    from depthestimation_torch.pipeline import raw_disparity
+
+    dev = torch.device("cuda")
+    lb, rb = _frames(4, dev)
+    counts, sgm_ms = _check_batch_and_disp(mesh, mesh, lb, rb, "1 rank")
+    result = {"batch_pipeline_frames": 4, "batch_pipeline_counts": counts,
+              "disp_sharded_sgm_host_ms": sgm_ms}
+
+    # -- 4 row tiles with DEFAULT_HALO, tile by tile, against the whole image --
+    cfg = SGMConfig(num_disp=D, sgbm_mode="hh4", speckle_window_size=50)
+    n_tiles, halo = 4, shard.DEFAULT_HALO
+    tiled = torch.cat([shard.tile_disparity(shard.tile_with_halo(lb[0], n_tiles, i, halo),
+                                            shard.tile_with_halo(rb[0], n_tiles, i, halo),
+                                            cfg, halo) for i in range(n_tiles)])
+    whole = raw_disparity(lb[0], rb[0], cfg)
+    diff = ((tiled - whole).abs() > 1 / 16 + 1e-6).cpu().numpy()
+    seams = [r for i in range(1, n_tiles) for r in range(
+        i * (H // n_tiles) - TILE_SEAM_ROWS, i * (H // n_tiles) + TILE_SEAM_ROWS)]
+    result["tiles"] = {"n": n_tiles, "halo": halo, "mode": "hh4",
+                       "seam_mismatch": float(diff[seams].mean()),
+                       "total_mismatch": float(diff.mean())}
+    log(f"[3g] {n_tiles} tiles, halo {halo}, hh4: mismatch {result['tiles']}")
+    if not (result["tiles"]["seam_mismatch"] < 0.005 and result["tiles"]["total_mismatch"] < 0.005):
+        raise AssertionError("tiles: mismatch against the whole image >= 0.5 %")
+
+    # -- predict_sharded at world size 1 --
+    model = MonoDepthModel.create("small", seed=0, device=dev)
+    x = torch.rand(2, 518, 518, 3, generator=torch.Generator().manual_seed(1))
+    got = model.predict_sharded(x, mesh)
+    with torch.no_grad():
+        want = model.net(x.to(dev)).cpu().numpy()
+    if not np.array_equal(got, want):
+        raise AssertionError("predict_sharded differs from the net's forward")
+    log("[3g] predict_sharded, 2x518x518, one rank == net(images) (bit for bit)")
+    result["predict_sharded"] = {"batch": [2, 518, 518, 3], "equal": True}
+
+    # -- one process per GPU --
+    world = 1 << (max(torch.cuda.device_count(), 1).bit_length() - 1)
+    result["processes"] = world if world > 1 else None
+    if world > 1:
+        import torch.multiprocessing as mp
+
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        mp.spawn(_multi_gpu_rank, args=(world, port), nprocs=world, join=True)
+        log(f"[3g] {world} processes, one per GPU: batch_pipeline and disp_sharded_sgm "
+            "checks passed on every rank")
     return result
 
 
@@ -920,6 +1236,13 @@ def main() -> int:
     # ---- 3e. the monocular net and MonocularDepthEstimator ----
     mono_numbers = phase_mono(cycles_per_ms, smi)
 
+    # ---- 3f. the mono training step; 3g. the parallel layer ----
+    import torch.distributed as dist
+
+    mesh, train_numbers = phase_train(cycles_per_ms, smi)
+    parallel_numbers = phase_parallel(mesh)
+    dist.destroy_process_group()
+
     # ---- 4. kernels line ----
     # `calls` and `launches` are the counts of one pair of the path named,
     # read in phase 3; ms is per wrapper call, so a kernel's loss per pair
@@ -956,12 +1279,16 @@ def main() -> int:
             "library_ms": library.get(name),
         }
         row["loss_ms"] = row["calls"] * (row["ms"] - row["bound_ms"])
+        # Launches in phase 3g's batch_pipeline over 4 frames (its own path).
+        row["launches_batch_pipeline"] = parallel_numbers["batch_pipeline_counts"].get(
+            name, (0, 0))[1]
         if name == "cost_volume":
             row["max_abs_err_fractional"] = errs["cost_volume_fractional"]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"streams": streams, "stages": split}))
     print(json.dumps({"mono": mono_numbers}))
+    print(json.dumps({"train": train_numbers, "parallel": parallel_numbers}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -14,7 +14,9 @@
     head.{conv1,conv2,conv3} -> head.head_conv1, head_conv2, head_out
   .safetensors files are read without the safetensors package.
 - The JAX package's Flax parameter tree (from_flax_params), whose module
-  names the port's modules carry.
+  names the port's modules carry; its checkpoints' msgpack read without
+  msgpack or flax (read_flax_msgpack); and its optax AdamW state carried
+  into a torch optimizer (load_optax_adam_state).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 __all__ = ["read_safetensors", "convert_state_dict", "load_hf_depth_anything",
-           "from_flax_params"]
+           "from_flax_params", "read_flax_msgpack", "load_optax_adam_state"]
 
 _SAFETENSORS_DTYPES = {
     "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
@@ -189,3 +191,108 @@ def from_flax_params(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]
             name = f"{prefix}weight"
         out[name] = torch.tensor(a, dtype=torch.float32)
     return out
+
+
+# ---- the JAX package's checkpoints: flax.serialization msgpack -------------
+
+# flax.serialization's msgpack ext codes (_MsgpackExtType).
+_EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
+# Fixed-width msgpack types: first byte -> struct format (big-endian).
+_FIXED = {0xca: ">f", 0xcb: ">d", 0xcc: ">B", 0xcd: ">H", 0xce: ">I", 0xcf: ">Q",
+          0xd0: ">b", 0xd1: ">h", 0xd2: ">i", 0xd3: ">q"}
+
+
+class _MsgpackReader:
+    """The subset of msgpack that flax.serialization.msgpack_serialize
+    writes: maps, arrays, strings, binaries, numbers, nil/bool and ext
+    types, with flax's ndarray ext decoded to numpy."""
+
+    def __init__(self, data: bytes):
+        self.data, self.pos = memoryview(data), 0
+
+    def _take(self, n: int) -> memoryview:
+        out = self.data[self.pos:self.pos + n]
+        if len(out) != n:
+            raise ValueError("truncated msgpack data")
+        self.pos += n
+        return out
+
+    def _unpack(self, fmt: str):
+        return struct.unpack(fmt, self._take(struct.calcsize(fmt)))[0]
+
+    def read(self):
+        b = self._take(1)[0]
+        if b <= 0x7f:
+            return b
+        if b >= 0xe0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8f:
+            return self._map(b & 0x0f)
+        if 0x90 <= b <= 0x9f:
+            return [self.read() for _ in range(b & 0x0f)]
+        if 0xa0 <= b <= 0xbf:
+            return bytes(self._take(b & 0x1f)).decode()
+        if b in (0xc0, 0xc2, 0xc3):
+            return {0xc0: None, 0xc2: False, 0xc3: True}[b]
+        if b in _FIXED:
+            return self._unpack(_FIXED[b])
+        if b in (0xc4, 0xc5, 0xc6):
+            return bytes(self._take(self._unpack(">" + "BHI"[b - 0xc4])))
+        if b in (0xd9, 0xda, 0xdb):
+            return bytes(self._take(self._unpack(">" + "BHI"[b - 0xd9]))).decode()
+        if b in (0xdc, 0xdd):
+            return [self.read() for _ in range(self._unpack(">" + "HI"[b - 0xdc]))]
+        if b in (0xde, 0xdf):
+            return self._map(self._unpack(">" + "HI"[b - 0xde]))
+        if 0xd4 <= b <= 0xd8:
+            return self._ext(1 << (b - 0xd4))
+        if b in (0xc7, 0xc8, 0xc9):
+            return self._ext(self._unpack(">" + "BHI"[b - 0xc7]))
+        raise ValueError(f"msgpack type byte 0x{b:02x} is not supported")
+
+    def _map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            key = self.read()
+            out[key] = self.read()
+        if out.get("__msgpack_chunked_array__"):
+            # flax splits arrays above 1 GiB into flat chunks.
+            shape = [out["shape"][str(i)] for i in range(len(out["shape"]))]
+            chunks = [out["chunks"][str(i)] for i in range(len(out["chunks"]))]
+            return np.concatenate(chunks).reshape(shape)
+        return out
+
+    def _ext(self, n: int):
+        code = self._unpack(">b")
+        payload = bytes(self._take(n))
+        if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
+            raise ValueError(f"msgpack ext type {code} is not a flax array")
+        shape, dtype, buffer = _MsgpackReader(payload).read()
+        dtype = dtype.decode() if isinstance(dtype, bytes) else dtype
+        arr = np.frombuffer(buffer, dtype=np.dtype(dtype)).reshape(shape)
+        return arr[()] if code == _EXT_NPSCALAR else arr
+
+
+def read_flax_msgpack(data: bytes):
+    """The tree flax.serialization.msgpack_restore gives for `data` (nested
+    dicts with numpy leaves), without msgpack or flax installed."""
+    reader = _MsgpackReader(data)
+    tree = reader.read()
+    if reader.pos != len(reader.data):
+        raise ValueError("trailing bytes after the msgpack object")
+    return tree
+
+
+def load_optax_adam_state(optimizer: torch.optim.Optimizer, net: torch.nn.Module,
+                          count, mu: Mapping, nu: Mapping) -> None:
+    """Carry optax's ScaleByAdamState (count, mu, nu; the first state of
+    optax.adamw's chain) into a torch Adam/AdamW optimizer over the whole
+    of `net`'s parameters: step = count, exp_avg = mu, exp_avg_sq = nu,
+    each moment laid out as from_flax_params lays out its parameter."""
+    moments = from_flax_params(mu), from_flax_params(nu)
+    for name, p in net.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(np.asarray(count))),
+            "exp_avg": moments[0][name].to(p.device),
+            "exp_avg_sq": moments[1][name].to(p.device),
+        }

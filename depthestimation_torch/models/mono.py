@@ -41,6 +41,10 @@ _SIZE_PRESETS = {
 
 CONFIG_FILE = "depthestimation_torch_config.json"
 STATE_FILE = "depthestimation_torch_state.pt"
+# The JAX package's checkpoint (its MonoDepthModel.save): params as
+# flax.serialization msgpack plus a config json of the same schema.
+JAX_CONFIG_FILE = "depthestimation_tpu_config.json"
+JAX_PARAMS_FILE = "depthestimation_tpu_params.msgpack"
 
 
 class MonoDepthNet(nn.Module):
@@ -235,10 +239,12 @@ class MonoDepthModel:
     @classmethod
     def load(cls, model_path: str, device="cuda") -> "MonoDepthModel":
         """Load from a size preset name ('small'/'base'/'large': random
-        init), a checkpoint directory written by save(), or an HF
-        Depth-Anything-V2 snapshot directory (config.json + *.safetensors
-        or pytorch_model*.bin, converted on the fly, models/convert.py),
-        onto `device` (RuntimeError for "cuda" without a card)."""
+        init), a checkpoint directory written by save() or by the JAX
+        package's save() (msgpack params, read without msgpack or flax),
+        or an HF Depth-Anything-V2 snapshot directory (config.json +
+        *.safetensors or pytorch_model*.bin, converted on the fly,
+        models/convert.py), onto `device` (RuntimeError for "cuda"
+        without a card)."""
         device = _resolve_device(device)
         if model_path in _SIZE_PRESETS:
             return cls.create(model_path, device=device)
@@ -250,11 +256,32 @@ class MonoDepthModel:
                 net.load_state_dict(torch.load(os.path.join(model_path, STATE_FILE),
                                                map_location="cpu", weights_only=True))
                 return cls(net=net.eval()).to_device(device)
+            if os.path.exists(os.path.join(model_path, JAX_PARAMS_FILE)):
+                return cls._load_msgpack(model_path, device)
             if os.path.exists(os.path.join(model_path, "config.json")):
                 from .convert import load_hf_depth_anything
 
                 return load_hf_depth_anything(model_path, device)
         raise FileNotFoundError(f"No loadable model at {model_path}")
+
+    @classmethod
+    def _load_msgpack(cls, model_dir: str, device) -> "MonoDepthModel":
+        """The JAX package's checkpoint directory: its config json (the full
+        architecture, or a size preset and image size in the oldest
+        checkpoints) and its Flax params, carried by from_flax_params."""
+        from .convert import from_flax_params, read_flax_msgpack
+
+        with open(os.path.join(model_dir, JAX_CONFIG_FILE)) as f:
+            meta = json.load(f)
+        if "vit" in meta:
+            vit_cfg, dpt_cfg = _configs_from_meta(meta)
+        else:
+            vit_fn, dpt_cfg = _SIZE_PRESETS[meta["size"]]
+            vit_cfg = vit_fn(image_size=meta["image_size"])
+        net = MonoDepthNet(vit_cfg, dpt_cfg)
+        with open(os.path.join(model_dir, JAX_PARAMS_FILE), "rb") as f:
+            net.load_state_dict(from_flax_params(read_flax_msgpack(f.read())))
+        return cls(net=net.eval()).to_device(device)
 
     def save(self, model_dir: str, size: str = "small", image_size: int = None):
         """Write the directory load() reads: the state dict plus a config
@@ -287,3 +314,16 @@ class MonoDepthModel:
         """Single RGB uint8 image (H, W, 3) -> relative depth (H', W') at
         the preprocessed resolution (HF predicted_depth semantics)."""
         return self.predict_async(image).cpu().numpy()
+
+    def predict_sharded(self, images, mesh, data_axis: str = "data") -> np.ndarray:
+        """Batched sharded inference: preprocessed images (B, H, W, 3) float
+        in [0, 1] (numpy or tensor, the same global batch on every rank)
+        -> depth (B, H, W) numpy, the global result on every rank. The
+        batch splits over `data_axis` and the weights over 'model', laid
+        out as in the train step (models/train.py); with one 'model' rank
+        the model's own net runs. Numerics are predict()'s net."""
+        from .train import make_sharded_predict, param_shardings_for
+
+        shardings = param_shardings_for(self.net, mesh)
+        predict = make_sharded_predict(self.net, mesh, shardings, data_axis)
+        return predict(images).cpu().numpy()

@@ -71,13 +71,14 @@ class Attention(nn.Module):
         self.proj = nn.Linear(d, d)
 
     def forward(self, x):
-        b, t, d = x.shape
-        head_dim = d // self.num_heads
-        # (B, T, 3, H, Dh) -> three (B, H, T, Dh)
-        q, k, v = self.qkv(x).reshape(b, t, 3, self.num_heads, head_dim).permute(2, 0, 3, 1, 4)
-        attn = (q * head_dim**-0.5) @ k.transpose(-1, -2)
+        b, t, _ = x.shape
+        # (B, T, 3, H, Dh) -> three (B, H, T, Dh). Under tensor parallelism
+        # (models/train.py) qkv yields this rank's heads only and num_heads
+        # counts them.
+        q, k, v = self.qkv(x).reshape(b, t, 3, self.num_heads, -1).permute(2, 0, 3, 1, 4)
+        attn = (q * q.shape[-1]**-0.5) @ k.transpose(-1, -2)
         attn = torch.softmax(attn.float(), dim=-1).to(v.dtype)
-        out = (attn @ v).transpose(1, 2).reshape(b, t, d)
+        out = (attn @ v).transpose(1, 2).reshape(b, t, -1)
         return self.proj(out)
 
 

@@ -28,6 +28,7 @@ PORT_MODULES = [
     "depthestimation_torch.models.convert",
     "depthestimation_torch.models.dpt",
     "depthestimation_torch.models.mono",
+    "depthestimation_torch.models.train",
     "depthestimation_torch.models.vit",
     "depthestimation_torch.ops.color",
     "depthestimation_torch.ops.costs",
@@ -39,6 +40,8 @@ PORT_MODULES = [
     "depthestimation_torch.ops.sgm",
     "depthestimation_torch.ops.wls",
     "depthestimation_torch.ops.wta",
+    "depthestimation_torch.parallel.mesh",
+    "depthestimation_torch.parallel.shard",
 ]
 
 
@@ -195,8 +198,9 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
-        "'jaxlib', 'depthestimation_tpu'))]\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', 'msgpack') "
+        "or m.startswith(('jax.', 'jaxlib', 'flax.', 'optax.', 'msgpack.', "
+        "'depthestimation_tpu'))]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
