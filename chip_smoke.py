@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's stereo paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--trace-dir DIR]
 
@@ -80,15 +80,35 @@ Phases (any failure exits non-zero and prints no result):
         seams and overall < 0.5 %); predict_sharded equal to the net's
         forward; with several GPUs, batch_pipeline and disp_sharded_sgm
         again with one process per GPU;
+     h. the user-facing surface: a synthetic 2964x1988 pair (ndisp 280)
+        written as PNG with its calib.txt (examples/example_stereo.py's
+        rig) and decoded back bit for bit; examples.stereo on it at
+        downscale 0.5 without calib.txt (994x1482, D = 144) and with it
+        (1988x2964, D = 144, the remap), each run with the counts set to 0
+        just before and read just after (exactly K1 1, K2 1 / 2, K3 1,
+        and remap 1 with calib.txt), its disparity equal bit for bit to
+        StereoDepthEstimator's on the decoded arrays, K1/K2/K3 and the
+        remap equal to their plain versions at that shape and timed, the
+        valid share, the MAE against the scene's ground truth and ms per
+        pair; examples.stereo_live on 60 synthetic frames at 0.7 (counts
+        60 x K1 1, K2 1 / 2, K3 1; frames 0-2 equal to the single-pair
+        path); examples.mono (small, the committed demo PNG); the
+        tools.profile_kernels stage table; tools.halo_sweep at 1080p, 8
+        tiles (seam mismatch < 0.5 % at halo >= 64 without speckle);
+        entry()'s function; dryrun(1) over NCCL, and dryrun(n) with one
+        process per GPU when n > 1 are visible;
   4. one JSON line {"kernels": [...]}: per kernel the wrapper calls and
      kernel launches counted in phase 3 in one pair of the path named, ms
-     per call, its bound, the loss per pair, calls x (ms - bound_ms), and
-     its launches in phase 3g's batch_pipeline;
+     per call, its bound, the loss per pair, calls x (ms - bound_ms), its
+     launches in phase 3g's batch_pipeline, and under "middlebury" its
+     launches, ms, plain ms, bound and error in phase 3h at each shape;
   5. one JSON line {"streams": {...}} with phase 3d's numbers, one JSON
      line {"mono": {...}} with phase 3e's beside the card's name and power
      limit, one JSON line {"train": {...}, "parallel": {...}} with phases
-     3f and 3g's, the card's name and power limit, then the last line
-     {"ok": true, "device": {...}}.
+     3f and 3g's, the card's name and power limit, one JSON line
+     {"surface": {...}} with phase 3h's, the card's name and power limit
+     on a line of its own, then the last line {"ok": true, "device":
+     {...}}.
 
 Imports nothing of JAX or depthestimation_tpu.
 """
@@ -96,6 +116,7 @@ Imports nothing of JAX or depthestimation_tpu.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -249,12 +270,12 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
-def hold_exact(name, got, want, errs):
+def hold_exact(name, got, want, errs, phase="2"):
     if got.dtype != want.dtype or got.shape != want.shape:
         raise AssertionError(f"{name}: {got.dtype}{tuple(got.shape)} vs "
                              f"plain {want.dtype}{tuple(want.shape)}")
     errs[name] = max_abs_err(got, want)
-    log(f"[2] {name}: {got.dtype} {tuple(got.shape)} max_abs_err {errs[name]}")
+    log(f"[{phase}] {name}: {got.dtype} {tuple(got.shape)} max_abs_err {errs[name]}")
     if errs[name] != 0:
         raise AssertionError(f"{name} disagrees with its plain version")
 
@@ -353,17 +374,6 @@ def run_stream(frames, sgbm, expected, tag, **kw):
         raise AssertionError(f"{tag}: (calls, launches) {counts}, expected {expected}")
     summary["launches"] = {k: n for k, (_, n) in counts.items()}
     return out, summary
-
-
-def sleep_cycles_per_ms() -> float:
-    """Cycles of torch.cuda._sleep per ms on this card, from 10 M cycles."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    torch.cuda._sleep(10_000_000)
-    end.record()
-    torch.cuda.synchronize()
-    return 10_000_000 / start.elapsed_time(end)
 
 
 # Kernel classes by name, first match wins: cuDNN convolutions (forward,
@@ -967,6 +977,264 @@ def phase_parallel(mesh):
     return result
 
 
+# ---- 3h. the user-facing surface ----
+# examples/example_stereo.py's rig (its CLI defaults): a Middlebury pair,
+# 2964x1988, 280 disparities, matched at downscale 0.5 with D = 144.
+MIDDLEBURY = dict(focal_px=3997.684, baseline_mm=193.001, doffs=131.111, width=2964,
+                  height=1988, ndisp=280)
+SURFACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "surface")
+
+
+def kernel_work(name, h, w, d, acc_bytes=2, out_bytes=2, dirs=1):
+    """(bytes, operations) of one call of a kernel at (h, w, d): each input
+    read once, each output written once; operations per (y, x, d): K1 BT
+    the pixel cost once (10) plus a separable running box sum (4), census
+    XOR + popcount (2) plus the box sum; K2 two scan steps (9 each) plus
+    the sum; K3 one scan step plus the sum per direction. Remap: both
+    images and their maps read, both outputs written, ~17 operations a
+    pixel."""
+    n = h * w * d
+    if name == "remap":
+        return 2 * h * w * 4 * 4, 2 * h * w * 17
+    if name.startswith("cost_volume"):
+        return 2 * h * w * 4 + n * 2, n * (6 if name.endswith("census") else 14)
+    if name == "hscan":
+        return n * (2 + acc_bytes), n * 19
+    return n * (2 + acc_bytes + out_bytes), n * 10 * dirs
+
+
+def bound(nbytes, nops):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over
+    the card's memory rate and the operations over its 32-bit rate."""
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def _middlebury_kernels(est, calibrated, errs_tag):
+    """K1, K2, K3 (sgbm_3way's downward pass) and, calibrated, the remap on
+    the example's own pair at its shape: each equal to its plain version
+    bit for bit, timed on the card (kernel and plain), with its bound.
+    Returns {kernel: numbers}."""
+    from depthestimation_torch.ops import color, cuda_sgm, remap
+
+    core, cfg = est.core, est.core.cfg
+    gl, gr = core.left_rectified, core.right_rectified
+    h, w = gl.shape
+    d = cfg.num_disp
+    final = cuda_sgm._final_dtype(cfg)
+    acc = cuda_sgm._acc_dtype(cfg)
+    errs, out = {}, {}
+    c = cuda_sgm.cost_volume(gl, gr, cfg)
+    hold_exact(f"{errs_tag} cost_volume", c, cuda_sgm.cost_volume_plain(gl, gr, cfg), errs,
+               "3h")
+    swe = cuda_sgm.hscan(c, cfg)
+    hold_exact(f"{errs_tag} hscan", swe, cuda_sgm.hscan_plain(c, cfg), errs, "3h")
+    s = cuda_sgm.rowsweep(c, swe, cfg, (0,), False, final)
+    hold_exact(f"{errs_tag} rowsweep", s,
+               cuda_sgm.rowsweep_plain(c, swe, cfg, (0,), False, final), errs, "3h")
+    timed = {
+        "cost_volume": (lambda: cuda_sgm.cost_volume(gl, gr, cfg),
+                        lambda: cuda_sgm.cost_volume_plain(gl, gr, cfg), {}),
+        "hscan": (lambda: cuda_sgm.hscan(c, cfg), lambda: cuda_sgm.hscan_plain(c, cfg),
+                  dict(acc_bytes=acc.itemsize)),
+        "rowsweep": (lambda: cuda_sgm.rowsweep(c, swe, cfg, (0,), False, final),
+                     lambda: cuda_sgm.rowsweep_plain(c, swe, cfg, (0,), False, final),
+                     dict(acc_bytes=acc.itemsize, out_bytes=final.itemsize)),
+    }
+    if calibrated:
+        # The pair as prepare_rectified hands it to the remap: grayscale of
+        # the downscaled images, resized back to the calibration's size.
+        gray = torch.stack([color.resize_bilinear(color.to_grayscale(core._tensor(img)), (h, w))
+                            for img in (est.left_source, est.right_source)])
+        mx, my = core._rect_cache.device_maps(cfg.calib, cfg.baseline, 1.0, core.device)
+        rect = remap.remap_bilinear(gray, mx, my)
+        hold_exact(f"{errs_tag} remap", rect, remap.remap_bilinear_plain(gray, mx, my), errs,
+                   "3h")
+        if not (torch.equal(rect[0], gl) and torch.equal(rect[1], gr)):
+            raise AssertionError(f"{errs_tag}: the remap of the resized pair is not the "
+                                 "example's rectified pair")
+        timed["remap"] = (lambda: remap.remap_bilinear(gray, mx, my),
+                          lambda: remap.remap_bilinear_plain(gray, mx, my), {})
+    for name, (kern, plain, kw) in timed.items():
+        ms_, plain_ms_ = time_ms(kern), time_ms(plain, runs=3)
+        bound_ms, by = bound(*kernel_work(name, h, w, d, **kw))
+        out[name] = {"shape": [h, w, d], "max_abs_err": errs[f"{errs_tag} {name}"],
+                     "ms": ms_, "plain_ms": plain_ms_, "bound_ms": bound_ms, "bound_by": by}
+        log(f"[3h] {errs_tag} {name}: {ms_:.4f} ms (bound {bound_ms:.4f}, {by}), "
+            f"plain {plain_ms_:.2f} ms")
+    del c, swe, s
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_surface(smi):
+    """examples.stereo on a written Middlebury-geometry PNG pair (without
+    and with its calib.txt), examples.stereo_live, examples.mono,
+    tools.profile_kernels, tools.halo_sweep, entry() and dryrun(1) (and
+    dryrun(n) over n GPUs). Returns (the numbers to print, the Middlebury
+    kernel numbers by shape)."""
+    import torch.distributed as dist
+
+    from depthestimation_torch import StereoDepthEstimator, parse_calib_file
+    from depthestimation_torch import entry as entry_mod
+    from depthestimation_torch.examples import mono, stereo, stereo_live
+    from depthestimation_torch.io import png
+    from depthestimation_torch.io.input import _area_downscale_np
+    from depthestimation_torch.io.synthetic import (DEMO_CALIB, calib_text,
+                                                    synthesize_stereo_pair, synthetic_stream)
+    from depthestimation_torch.ops import cuda_sgm
+    from depthestimation_torch.pipeline import StereoPipeline
+    from depthestimation_torch.tools import halo_sweep, profile_kernels
+
+    result = {"card": smi}
+    kernels = {}
+
+    # -- the pair: written as PNG, decoded back bit for bit --
+    t0 = time.perf_counter()
+    os.makedirs(SURFACE_DIR, exist_ok=True)
+    paths = {name: os.path.join(SURFACE_DIR, name + ext)
+             for name, ext in (("left", ".png"), ("right", ".png"), ("calib", ".txt"))}
+    *written, gt = synthesize_stereo_pair(MIDDLEBURY["width"], MIDDLEBURY["height"],
+                                          MIDDLEBURY["ndisp"], seed=0)
+    for side, img in zip(("left", "right"), written):
+        png.write_png(paths[side], img)
+    with open(paths["calib"], "w") as fh:
+        fh.write(calib_text(MIDDLEBURY))
+    result["write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoded = [png.read_png(paths[side])[0] for side in ("left", "right")]
+    result["decode_s"] = time.perf_counter() - t0
+    for side, got, want in zip(("left", "right"), decoded, written):
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"3h: the decoded {side} PNG differs from the array written")
+    log(f"[3h] {MIDDLEBURY['width']}x{MIDDLEBURY['height']} pair written "
+        f"({result['write_s']:.2f} s with the scene) and decoded ({result['decode_s']:.2f} s): "
+        "equal to the arrays written, bit for bit")
+
+    # -- examples.stereo at downscale 0.5, without and with calib.txt --
+    base = [paths["left"], paths["right"], "--downscale", "0.5", "--device", "cuda", "--no-viz"]
+    # D = 144: the configured 280 halved and rounded up to a multiple of 16.
+    h_full, w_full, d = MIDDLEBURY["height"], MIDDLEBURY["width"], -(-MIDDLEBURY["ndisp"] // 32) * 16
+    runs = {f"{h_full // 2}x{w_full // 2}x{d}": (["--ndisp", str(MIDDLEBURY["ndisp"])], False),
+            f"{h_full}x{w_full}x{d}": (["--calib", paths["calib"]], True)}
+    result["stereo"] = {}
+    for tag, (extra, calibrated) in runs.items():
+        cuda_sgm.reset_launches()
+        t0 = time.perf_counter()
+        est = stereo.run(base + extra)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        counts = counted()
+        expected = {"cost_volume": (1, 1), "hscan": (1, 2), "rowsweep": (1, 1)}
+        if calibrated:
+            expected["remap"] = (1, 1)
+        log(f"[3h] examples.stereo {tag}: (calls, launches) {counts}")
+        if counts != expected:
+            raise AssertionError(f"examples.stereo {tag} made {counts}, expected {expected}")
+        cfg = est.core.cfg
+        h, w = est.core.left_rectified.shape
+        if f"{h}x{w}x{cfg.num_disp}" != tag:
+            raise AssertionError(f"examples.stereo {tag} matched at {h}x{w}x{cfg.num_disp}")
+        facade = StereoDepthEstimator(downscale_factor=0.5, device="cuda")
+        facade.left_source, facade.right_source = (_area_downscale_np(img, 0.5)
+                                                   for img in decoded)
+        if calibrated:
+            facade.configure_sgbm(**parse_calib_file(paths["calib"])["sgbm_kwargs"],
+                                  sgbm_mode="sgbm_3way")
+        else:
+            facade.configure_sgbm(num_disp=MIDDLEBURY["ndisp"], sgbm_mode="sgbm_3way",
+                                  focal_length=MIDDLEBURY["focal_px"],
+                                  baseline=MIDDLEBURY["baseline_mm"] / 1000.0,
+                                  doffs=MIDDLEBURY["doffs"])
+        disp, depth = facade.estimate_depth()
+        if not (np.array_equal(disp, est.disparity_map)
+                and np.array_equal(depth, est.depth_map, equal_nan=True)):
+            raise AssertionError(f"examples.stereo {tag} differs from the facade on the "
+                                 "decoded arrays")
+        check_output(disp, depth, (h, w - cfg.num_disp), tag)
+        numbers = {"launches": {k: n for k, (_, n) in counts.items()},
+                   "first_call_ms": first_ms, "ms_per_pair": host_ms(est.estimate_depth, runs=3),
+                   "valid_share": float((disp > 0).mean())}
+        if not calibrated:
+            # The ground truth at the matcher's scale: 2x2 means, halved.
+            g = gt.reshape(h, 2, w, 2).mean(axis=(1, 3)) * 0.5
+            ok = disp > 0
+            numbers["mae_px_vs_gt"] = float(np.abs(disp - g[:, cfg.num_disp:])[ok].mean())
+        log(f"[3h] examples.stereo {tag} == the facade on the decoded arrays (bit for bit): "
+            f"{numbers}")
+        result["stereo"][tag] = numbers
+        kernels[tag] = _middlebury_kernels(est, calibrated, tag)
+        for name in kernels[tag]:
+            kernels[tag][name]["launches"] = numbers["launches"][name]
+        del est, facade
+        torch.cuda.empty_cache()
+
+    # -- examples.stereo_live: 60 synthetic frames at 0.7, no throttle --
+    n_frames, first = 60, []
+    cuda_sgm.reset_launches()
+    vid = stereo_live.run(["--device", "cuda", "--no-viz", "--fps", "0",
+                           "--frames", str(n_frames)],
+                          on_frame=lambda i, depth: i < 3 and first.append(depth))
+    torch.cuda.synchronize()
+    counts = counted()
+    expected = {"cost_volume": (n_frames, n_frames), "hscan": (n_frames, 2 * n_frames),
+                "rowsweep": (n_frames, n_frames)}
+    summary = vid.metrics.summary()
+    if counts != expected or summary["frames"] != n_frames or summary["frames_failed"]:
+        raise AssertionError(f"examples.stereo_live: {summary}, (calls, launches) {counts}")
+    ref = StereoPipeline(downscale_factor=0.7, device="cuda")
+    ref.configure(num_disp=DEMO_CALIB["ndisp"], focal_length=DEMO_CALIB["focal_px"],
+                  baseline=DEMO_CALIB["baseline_mm"] / 1000.0, doffs=0,
+                  hole_filling=True, temporal_alpha=0.4)
+    for i, (left, right) in enumerate(zip(*synthetic_stream(3))):
+        want = ref.estimate_depth(_area_downscale_np(left, 0.7), _area_downscale_np(right, 0.7))[1]
+        if not np.array_equal(first[i], want):
+            raise AssertionError(f"examples.stereo_live frame {i} differs from the single pair")
+    result["stereo_live"] = dict(summary, launches={k: n for k, (_, n) in counts.items()})
+    log(f"[3h] examples.stereo_live, {n_frames} frames at 0.7: frames 0-2 == the single-pair "
+        f"path (bit for bit); {summary}")
+
+    # -- examples.mono: small, the committed demo PNG at 0.5 --
+    est = mono.run(["--device", "cuda", "--no-viz"])
+    depth = est.depth_map
+    if not (np.isfinite(depth).all() and (depth >= 0).all()):
+        raise AssertionError("examples.mono: depth not finite and >= 0")
+    result["mono"] = {"shape": list(depth.shape)}
+    log(f"[3h] examples.mono: depth {depth.shape}, finite, >= 0")
+    del est
+
+    # -- tools.profile_kernels: the hh4 1080p/128 stage table --
+    rows = profile_kernels.profile(verbose=False)
+    log("[3h] tools.profile_kernels (hh4, 1080x1920x128):\n" + profile_kernels.table(rows))
+    result["profile_kernels"] = {name: [ms_, host] for name, ms_, host in rows}
+
+    # -- tools.halo_sweep: 1080p, 128 disparities, 8 tiles --
+    sweep = halo_sweep.sweep(H, W, D, 8, device="cuda", verbose=False)
+    log("[3h] tools.halo_sweep (hh4, 1080x1920x128, 8 tiles):\n" + halo_sweep.table(sweep))
+    result["halo_sweep"] = {f"speckle {s} halo {h}": list(v) for (s, h), v in sweep.items()}
+    bad = {k: v for k, v in sweep.items() if k[0] == 0 and k[1] >= 64 and v[1] >= 0.5}
+    if bad:
+        raise AssertionError(f"halo_sweep: seam mismatch >= 0.5 % at {bad}")
+
+    # -- the entry module: entry()'s function, then dryrun(1) over NCCL --
+    fn, args = entry_mod.entry()
+    disp = fn(*args)
+    torch.cuda.synchronize()
+    if tuple(disp.shape) != (270, 416) or not disp.is_cuda or not torch.isfinite(disp).all():
+        raise AssertionError(f"entry(): disparity {tuple(disp.shape)} on {disp.device}")
+    result["dryrun_1"] = entry_mod.dryrun(1)
+    if result["dryrun_1"]["backend"] != "nccl" or dist.is_initialized():
+        raise AssertionError(f"dryrun(1): {result['dryrun_1']}")
+    n_gpus = torch.cuda.device_count()
+    result["dryrun_n"] = n_gpus if n_gpus > 1 else None
+    if n_gpus > 1:
+        entry_mod.dryrun(n_gpus)
+    log(f"[3h] entry(): disparity {tuple(disp.shape)} on the card; dryrun(1) over NCCL "
+        f"passed: {result['dryrun_1']}" + (f"; dryrun({n_gpus}), one process per GPU, "
+                                           "passed" if n_gpus > 1 else ""))
+    return result, kernels
+
+
 def main() -> int:
     import argparse
 
@@ -984,6 +1252,7 @@ def main() -> int:
     from depthestimation_torch.calib import RectificationCache
     from depthestimation_torch.ops import (cuda_build, cuda_sgm, filters,
                                            remap, wta)
+    from depthestimation_torch.tools import profile_kernels
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -1071,23 +1340,13 @@ def main() -> int:
         f"max |diff| to the kernel {max_abs_err(lib_out, rect):.3g}")
     del lib_out, grid
 
-    # Least time for the same work: each input read once, each output
-    # written once, or the operations at the 32-bit rate, whichever is
-    # larger. Operations per (y, x, d): K1 BT the pixel cost once (10)
-    # plus a separable running box sum (4), census XOR + popcount (2) plus
-    # the box sum; K2 two scan steps (9 each) plus the sum; K3 one scan
-    # step plus the sum per direction. Remap: ~17 per output pixel.
-    n = H * W * D
+    # Least time for the same work (kernel_work, bound).
     acc_b = swe.element_size()
-    work = {
-        "cost_volume": (2 * H * W * 4 + n * 2, n * 14),
-        "cost_volume_census": (2 * H * W * 4 + n * 2, n * 6),
-        "hscan": (n * (2 + acc_b), n * 19),
-        "remap": (2 * H * W * 4 * 4, 2 * H * W * 17),
-    }
+    work = {name: kernel_work(name, H, W, D, acc_bytes=acc_b)
+            for name in ("cost_volume", "cost_volume_census", "hscan", "remap")}
     for name, (acc, _, dxs, _, _) in k3.items():
-        work[name] = (n * (2 + acc.element_size() + k3_out[name].element_size()),
-                      n * 10 * len(dxs))
+        work[name] = kernel_work(name, H, W, D, acc.element_size(),
+                                 k3_out[name].element_size(), len(dxs))
     del k3, k3_out, cc
 
     # ---- 3a. default path through the user's entry point ----
@@ -1153,7 +1412,7 @@ def main() -> int:
     # Each stage's host time to enqueue against its device time, the
     # sleep before it sized from the enqueue (a fixed 2 ms sleep is
     # shorter than most of these stages take to enqueue).
-    cycles_per_ms = sleep_cycles_per_ms()
+    cycles_per_ms = profile_kernels.sleep_cycles_per_ms()
     split = {}
     for name, fn in stages.items():
         split[name] = host_device_split(fn, cycles_per_ms)
@@ -1243,6 +1502,9 @@ def main() -> int:
     parallel_numbers = phase_parallel(mesh)
     dist.destroy_process_group()
 
+    # ---- 3h. examples, tools and entry points on the card ----
+    surface_numbers, middlebury = phase_surface(smi)
+
     # ---- 4. kernels line ----
     # `calls` and `launches` are the counts of one pair of the path named,
     # read in phase 3; ms is per wrapper call, so a kernel's loss per pair
@@ -1266,16 +1528,14 @@ def main() -> int:
     kernels = []
     for name, source, replaces, path in kernel_rows:
         calls, launches = counts_of[path].get(name, (0, 0))
-        nbytes, nops = work[name]
-        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / OPS_PER_S * 1e3
+        bound_ms, bound_by = bound(*work[name])
         row = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "path": path.split()[1], "calls": calls,
             "launches": launches,
             "max_abs_err": errs[name], "exact": errs[name] == 0,
             "ms": ms[name], "plain_ms": plain_ms[name],
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library.get(name),
         }
         row["loss_ms"] = row["calls"] * (row["ms"] - row["bound_ms"])
@@ -1284,11 +1544,16 @@ def main() -> int:
             name, (0, 0))[1]
         if name == "cost_volume":
             row["max_abs_err_fractional"] = errs["cost_volume_fractional"]
+        # Phase 3h: launches in examples.stereo's run at each Middlebury
+        # shape, ms, plain ms, bound and error at that shape.
+        row["middlebury"] = {tag: by_name[name] for tag, by_name in middlebury.items()
+                             if name in by_name}
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"streams": streams, "stages": split}))
     print(json.dumps({"mono": mono_numbers}))
     print(json.dumps({"train": train_numbers, "parallel": parallel_numbers}))
+    print(json.dumps({"surface": surface_numbers}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,9 +1,9 @@
 """Stereo rectification math, from scratch (host-side numpy).
 
 A copy of depthestimation_tpu/calib.py (numpy only), kept separate so the
-port never imports the JAX package; only RectificationCache differs: it
-keeps the maps as float32 tensors on the pipeline's device, and no host
-copy.
+port never imports the JAX package; only RectificationCache adds to it:
+beside the host maps of get_maps it keeps their float32 copies on the
+devices the pipeline asks for (device_maps).
 
 Replacement for cv2.stereoRectify + cv2.initUndistortRectifyMap
 (reference rectify.py:63-73,209-227). Map construction is small dense
@@ -279,25 +279,38 @@ def rectification_maps(calib, baseline: float, alpha: float = 1.0) -> Dict[str, 
 
 
 class RectificationCache:
-    """Single-entry cache of the maps on a device, keyed on the calibration
-    content (reference rectify.py:14-85 keying idea: same params -> same
-    maps object, identity-stable): built on the host once, uploaded once."""
+    """Single-entry cache of the maps keyed on the calibration content
+    (reference rectify.py:14-85 keying idea: same params -> same maps
+    object, identity-stable): built on the host once, and uploaded once
+    to each device asked for."""
 
     def __init__(self):
-        self._key = None
-        self._maps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self.clear()
+
+    def get_maps(self, calib, baseline: float, alpha: float = 1.0) -> Dict[str, np.ndarray]:
+        """The host maps of rectification_maps (keys map_x_l, map_y_l,
+        map_x_r, map_y_r), the same dict for the same (calib, baseline,
+        alpha); another key replaces the entry and its device copies."""
+        key = (calib, float(baseline), float(alpha))
+        if self._key != key or self._maps is None:
+            self._maps = rectification_maps(calib, baseline, alpha)
+            self._key = key
+            self._device_maps = {}
+        return self._maps
 
     def device_maps(self, calib, baseline: float, alpha: float, device):
         """(map_x, map_y): float32 tensors of shape (2, H, W) on device,
-        left camera first, keyed on (calib, baseline, alpha, device)."""
+        left camera first, from get_maps's entry, keyed alongside it on
+        the device."""
         device = torch.device(device)
-        key = (calib, float(baseline), float(alpha), device)
-        if self._key == key and self._maps is not None:
-            return self._maps
-        m = rectification_maps(calib, baseline, alpha)
-        self._maps = tuple(
-            torch.from_numpy(np.stack([m[f"map_{c}_l"], m[f"map_{c}_r"]])).to(device)
-            for c in ("x", "y")
-        )
-        self._key = key
-        return self._maps
+        m = self.get_maps(calib, baseline, alpha)
+        if device not in self._device_maps:
+            self._device_maps[device] = tuple(
+                torch.from_numpy(np.stack([m[f"map_{c}_l"], m[f"map_{c}_r"]])).to(device)
+                for c in ("x", "y"))
+        return self._device_maps[device]
+
+    def clear(self):
+        self._key = None
+        self._maps: Optional[Dict[str, np.ndarray]] = None
+        self._device_maps: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}

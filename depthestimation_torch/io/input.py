@@ -1,12 +1,14 @@
 """Host-side input: image loading and synchronized stereo streams
 (counterpart of depthestimation_tpu/io/input.py, reference
-depthlib/input.py). Decoding stays on the host; PIL or imageio is
-imported only when an image, a video file or a camera is opened, so a
-stream of frame iterables needs neither.
+depthlib/input.py). Decoding stays on the host. PNG files are read by
+io/png.py; PIL or imageio is imported only for another image format, a
+PNG that io/png.py does not read, a video file or a camera, so common
+PNG files and streams of frame iterables need neither.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Iterable, Tuple, Union
 
 import numpy as np
@@ -36,19 +38,40 @@ def _area_downscale_np(img: np.ndarray, factor: float) -> np.ndarray:
 
 
 def load_image(path) -> np.ndarray:
-    """Load an image file as RGB uint8 (H, W, 3)."""
+    """Load an image file as RGB uint8 (H, W, 3).
+
+    A PNG file is decoded by io/png.py (zlib and numpy, no imaging
+    package), on every machine alike, into what PIL's convert("RGB")
+    gives. What io/png.py does not read (other formats, an interlaced or
+    16-bit PNG, a file object) goes through PIL, else imageio; without
+    either, the PNG reader's ValueError or an ImportError is raised."""
+    from . import png
+
+    refused = None
+    if isinstance(path, (str, os.PathLike)) and png.is_png(path):
+        try:
+            return png.to_rgb(*png.read_png(path))
+        except ValueError as e:
+            refused = e
     try:
         from PIL import Image
-
+    except ImportError:
+        Image = None
+    if Image is not None:
         with Image.open(path) as im:
             return np.asarray(im.convert("RGB"))
-    except ImportError:
+    try:
         import imageio.v3 as iio
-
-        arr = iio.imread(path)
-        if arr.ndim == 2:
-            arr = np.stack([arr] * 3, axis=-1)
-        return arr[..., :3]
+    except ImportError:
+        if refused is not None:
+            raise refused from None
+        raise ImportError(
+            f"{path}: only PNG files that io/png.py reads are read without PIL "
+            "or imageio; install Pillow or imageio for other images") from None
+    arr = iio.imread(path)
+    if arr.ndim == 2:
+        arr = np.stack([arr] * 3, axis=-1)
+    return arr[..., :3]
 
 
 def load_stereo_pair(left_image_path, right_image_path, downscale_factor=1.0):

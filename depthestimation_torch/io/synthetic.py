@@ -23,6 +23,7 @@ __all__ = [
     "synthesize_stereo_pair",
     "synthetic_stream",
     "write_demo_assets",
+    "calib_text",
     "DEMO_CALIB",
 ]
 
@@ -135,7 +136,9 @@ def synthetic_stream(
     return lefts, rights
 
 
-def _calib_text(c=None) -> str:
+def calib_text(c=None) -> str:
+    """A Middlebury-format calib.txt for a rig of DEMO_CALIB's keys
+    (default DEMO_CALIB): cam0 and cam1 share f and cy, cx1 = cx0 + doffs."""
     c = c or DEMO_CALIB
     f, w, h = c["focal_px"], c["width"], c["height"]
     cx0, cx1, cy = 0.42 * w, 0.42 * w + c["doffs"], 0.5 * h
@@ -156,8 +159,9 @@ def _calib_text(c=None) -> str:
 def write_demo_assets(root: str = "assets", seed: int = 0,
                       overwrite: bool = False) -> dict:
     """Write im0.png / im1.png / gt_disp.npy under root/stereo_pairs and a
-    matching Middlebury-format root/calib.txt. Returns the paths."""
-    from PIL import Image
+    matching Middlebury-format root/calib.txt. Returns the paths. The PNG
+    files are written by io/png.py, so no imaging package is needed."""
+    from .png import write_png
 
     pair_dir = os.path.join(root, "stereo_pairs")
     os.makedirs(pair_dir, exist_ok=True)
@@ -173,9 +177,9 @@ def write_demo_assets(root: str = "assets", seed: int = 0,
     left, right, gt = synthesize_stereo_pair(
         c["width"], c["height"], c["ndisp"], seed=seed
     )
-    Image.fromarray(left).save(paths["left"])
-    Image.fromarray(right).save(paths["right"])
+    write_png(paths["left"], left)
+    write_png(paths["right"], right)
     np.save(paths["gt"], gt)
     with open(paths["calib"], "w") as fh:
-        fh.write(_calib_text())
+        fh.write(calib_text())
     return paths

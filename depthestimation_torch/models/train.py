@@ -282,6 +282,17 @@ def _data_shard(x, index: int, size: int, device) -> torch.Tensor:
     return x[index * per:(index + 1) * per].to(device=device, dtype=torch.float32)
 
 
+def _through_flat(tensors, collective) -> None:
+    """Run `collective` on the tensors packed into one flat tensor, and
+    copy its result back into them."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    collective(flat)
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
+
+
 def make_train_step(net: MonoDepthNet, optimizer, mesh, shardings):
     """The train step of make_sharded_train_state's (net, optimizer).
 
@@ -289,11 +300,20 @@ def make_train_step(net: MonoDepthNet, optimizer, mesh, shardings):
     passes the same global batch (numpy or tensor) and takes its 'data'
     shard; the step updates the rank's parameters in place and returns
     the global batch's loss, a 0-dim tensor on the mesh's device, without
-    waiting for the card. Pixels with target > 0 are valid."""
-    del shardings  # the layout lives in `net`
+    waiting for the card. Pixels with target > 0 are valid.
+
+    With more than one 'model' rank, the replicated parameters' gradients
+    are the first model rank's on every rank of its group: each rank
+    computes them whole, equal only up to the order of float sums (the
+    card's backward kernels add with atomics), and Adam's first steps
+    move a weight by about lr whatever its gradient's size, so a sign
+    that differs between two ranks would set their copies lr apart."""
     group, index, size = axis_info(mesh, "data")
+    model_group, _, model_size = (axis_info(mesh, "model") if "model" in mesh.mesh_dim_names
+                                  else (None, 0, 1))
     device = _mesh_device(mesh)
     params = list(net.parameters())
+    replicated = [p for name, p in net.named_parameters() if shardings[name] is None]
 
     def step(images, targets):
         images = _data_shard(images, index, size, device)
@@ -306,12 +326,12 @@ def make_train_step(net: MonoDepthNet, optimizer, mesh, shardings):
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         if size > 1:
-            flat = torch.cat([p.grad.reshape(-1) for p in params])
-            dist.all_reduce(flat, group=group)
-            offset = 0
-            for p in params:
-                p.grad.copy_(flat[offset:offset + p.numel()].view_as(p))
-                offset += p.numel()
+            _through_flat([p.grad for p in params],
+                          lambda flat: dist.all_reduce(flat, group=group))
+        if model_size > 1 and replicated:
+            src = dist.get_global_rank(model_group, 0)
+            _through_flat([p.grad for p in replicated],
+                          lambda flat: dist.broadcast(flat, src=src, group=model_group))
         optimizer.step()
         return loss.detach()
 

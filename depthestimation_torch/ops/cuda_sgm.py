@@ -37,7 +37,7 @@ from .cuda_build import (CALLS, LAUNCHES, called as _called, check as _check,
 
 __all__ = [
     "LAUNCHES", "CALLS", "reset_launches", "kernels_supported", "check_supported",
-    "cost_volume", "hscan", "rowsweep", "cost_volume_plain", "hscan_plain",
+    "cost_volume", "hscan", "hscan_launch", "rowsweep", "cost_volume_plain", "hscan_plain",
     "rowsweep_plain", "sgm_disparity", "sgm_disparity_plain",
 ]
 
@@ -173,22 +173,26 @@ def hscan(cost: torch.Tensor, cfg) -> torch.Tensor:
     L->R scan stores L (int16), the R->L scan adds it."""
     if not _on_card(cost):
         return hscan_plain(cost, cfg)
-    lib = load_library()
     h, w, d = cost.shape
     _check(cost, "cost", torch.int16, (h, w, d), cost.device)
-    acc_dt = _acc_dtype(cfg)
     l_lr = torch.empty_like(cost)
-    _launched("hscan", lib.sgm_hscan(
-        cost.data_ptr(), None, l_lr.data_ptr(), 0, 0, h, w, d,
-        cfg.p1, cfg.p2, _stream(),
-    ))
-    out = torch.empty((h, w, d), dtype=acc_dt, device=cost.device)
-    _launched("hscan", lib.sgm_hscan(
-        cost.data_ptr(), l_lr.data_ptr(), out.data_ptr(),
-        int(acc_dt == torch.int32), 1, h, w, d, cfg.p1, cfg.p2, _stream(),
-    ))
+    hscan_launch(cost, None, l_lr, cfg)
+    out = torch.empty((h, w, d), dtype=_acc_dtype(cfg), device=cost.device)
+    hscan_launch(cost, l_lr, out, cfg)
     _called("hscan")
     return out
+
+
+def hscan_launch(cost: torch.Tensor, l_lr, out: torch.Tensor, cfg) -> None:
+    """One of K2's two launches, on card tensors: with l_lr None the L->R
+    scan of int16 cost into out (int16); else the R->L scan, added to l_lr
+    and stored in out (int16 or int32)."""
+    h, w, d = cost.shape
+    _launched("hscan", load_library().sgm_hscan(
+        cost.data_ptr(), None if l_lr is None else l_lr.data_ptr(), out.data_ptr(),
+        int(out.dtype == torch.int32), int(l_lr is not None), h, w, d,
+        cfg.p1, cfg.p2, _stream(),
+    ))
 
 
 def _rowsweep_name(dxs, reverse) -> str:
