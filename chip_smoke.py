@@ -97,6 +97,23 @@ Phases (any failure exits non-zero and prints no result):
         tiles (seam mismatch < 0.5 % at halo >= 64 without speckle);
         entry()'s function; dryrun(1) over NCCL, and dryrun(n) with one
         process per GPU when n > 1 are visible;
+     i. the compiled-program caches as CUDA graphs (graphs.py), against
+        the eager functions on the card: for the default, north star,
+        rectified hh4, hh and census cells at 1080x1920x128 and
+        examples.stereo's two Middlebury shapes (994x1482 and 1988x2964,
+        D = 144, the second through the rectified graph), the first
+        estimate_depth_async (warm-up, capture, instantiation and the
+        graph's pool bytes) and a replay equal bit for bit to
+        prepare_rectified + stereo_depth_fn on the same raw pair, with the
+        (calls, launches) of the eager pair and of phase 3's path; eager
+        against graphed host enqueue ms, kernel ms and idle share
+        (host_device_split) and ms per pair with the read-back; a temporal
+        sequence of 3 frames with a reset_temporal() before the third and
+        the injected-matcher seam, each equal to the eager functions; the
+        mono `small` forward at 518x518 through predict_async against the
+        eager net (MONO_GRAPH_TOL), timed both ways. (Phase 3d's streams
+        run on the graphs, each frame also held to the eager functions,
+        and its frame splits give the eager frame beside the graphed one.)
   4. one JSON line {"kernels": [...]}: per kernel the wrapper calls and
      kernel launches counted in phase 3 in one pair of the path named, ms
      per call, its bound, the loss per pair, calls x (ms - bound_ms), its
@@ -106,9 +123,9 @@ Phases (any failure exits non-zero and prints no result):
      line {"mono": {...}} with phase 3e's beside the card's name and power
      limit, one JSON line {"train": {...}, "parallel": {...}} with phases
      3f and 3g's, the card's name and power limit, one JSON line
-     {"surface": {...}} with phase 3h's, the card's name and power limit
-     on a line of its own, then the last line {"ok": true, "device":
-     {...}}.
+     {"surface": {...}} with phase 3h's, one JSON line {"graphs": {...}}
+     with phase 3i's, the card's name and power limit on a line of its
+     own, then the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or depthestimation_tpu.
 """
@@ -481,20 +498,43 @@ def host_device_split(fn, cycles_per_ms, trace_dir=None, runs=3):
     return split
 
 
+def eager_pair(core, left, right, prev=None):
+    """The eager functions the pipeline's graphs capture, on a raw pair:
+    prepare_rectified, then stereo_depth_fn."""
+    from depthestimation_torch.pipeline import stereo_depth_fn
+
+    gl, gr = core.prepare_rectified(left, right)
+    return stereo_depth_fn(gl, gr, core.cfg, core.downscale_factor, core.fast_mode,
+                           prev_disp=prev)
+
+
 def frame_split(vid, left, right, cycles_per_ms, tag, trace_dir):
-    """host_device_split of one steady-state frame of the facade: compute,
+    """host_device_split of one steady-state frame of the facade (compute,
     depth cast and read-back copies, as StereoDepthEstimatorVideo enqueues
-    them, on a pair already staged on the card; its trace goes to
-    trace_dir/trace_<tag> when a trace_dir is given."""
+    them) on a pair already staged on the card: the frame as the facade
+    runs it (a replay of the pipeline's CUDA graph and one of the stats
+    graph), and under "eager" the same frame from the eager functions. The
+    graphed frame's trace goes to trace_dir/trace_<tag> when a trace_dir
+    is given."""
+    core = vid.core
 
     def frame():
-        disp, depth = vid.core.estimate_depth_async(left, right)
+        return vid._readback(*core.estimate_depth_async(left, right))
+
+    def eager_frame():
+        prev = core._prev_disp if core.cfg.temporal_alpha > 0 else None
+        disp, depth = eager_pair(core, left, right, prev)
         if depth is not None and vid.depth_dtype == "float16":
             depth = depth.to(torch.float16)
-        return vid._readback(disp, depth)
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+                for t in (vid._disp_stats(disp), depth) if t is not None]
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
 
     split = host_device_split(frame, cycles_per_ms,
                               trace_dir and f"{trace_dir}/trace_{tag}")
+    split["eager"] = host_device_split(eager_frame, cycles_per_ms)
     log(f"[3d] {tag} one steady frame: {split}")
     return split
 
@@ -531,9 +571,13 @@ def phase_streaming(raw_pair, cycles_per_ms, trace_dir):
         want = single.estimate_depth()[1].astype(np.float16)
         if not np.array_equal(out_a[i].view(np.uint16), want.view(np.uint16)):
             raise AssertionError(f"A: frame {i} differs from the single-pair path")
+        eager = eager_pair(single.core, frames_a[0][i], frames_a[1][i])[1]
+        if not np.array_equal(out_a[i].view(np.uint16),
+                              eager.half().cpu().numpy().view(np.uint16)):
+            raise AssertionError(f"A: frame {i} differs from the eager functions")
         disp = 1000.0 * 0.12 / out_a[i].astype(np.float32)
         hit = float((np.abs(disp - SHIFT) <= 1.0).mean())
-        log(f"[3d] A frame {i}: == single-pair float16 depth (bit for bit); "
+        log(f"[3d] A frame {i}: == single-pair and eager float16 depth (bit for bit); "
             f"known shift on {hit:.4%} of pixels")
         if hit < 0.95:
             raise AssertionError(f"A: frame {i} known shift on < 95 % of pixels")
@@ -566,13 +610,17 @@ def phase_streaming(raw_pair, cycles_per_ms, trace_dir):
                               use_threading=True)
     ref = StereoPipeline(device="cuda")
     ref.configure(**rig)
+    prev = None
     for i, (l, r) in enumerate(zip(*frames_b)):
         want = ref.estimate_depth(l, r)[1]
         if out_b[i].dtype != np.float32 or not np.array_equal(
                 out_b[i].view(np.uint32), want.view(np.uint32)):
             raise AssertionError(f"B: frame {i} differs from StereoPipeline's")
-    log(f"[3d] B: all {n_b} frames == StereoPipeline.estimate_depth with the "
-        "temporal carry (float32, bit for bit)")
+        prev, eager = eager_pair(ref, l, r, prev)
+        if not np.array_equal(out_b[i].view(np.uint32), eager.cpu().numpy().view(np.uint32)):
+            raise AssertionError(f"B: frame {i} differs from the eager functions")
+    log(f"[3d] B: all {n_b} frames == StereoPipeline.estimate_depth and the eager "
+        "functions with the temporal carry (float32, bit for bit)")
     vid = StereoDepthEstimatorVideo(target_fps=0, device="cuda")
     vid.configure_sgbm(**rig)
     staged = stager.adopt(*stager.stage((frames_b[0][1], frames_b[1][1])))
@@ -603,6 +651,10 @@ MONO_PEAKS = {"fp32": OPS_PER_S, "tf32": 495e12, "bf16": 989e12}
 # operand) on every convolution, the patch embedding's carried through the
 # blocks and about twenty more in the head.
 MONO_TOL = {False: 1e-4, True: 2e-2}
+# The graphed forward against the eager one on the card, the same share:
+# the same kernels, so bit-equal is expected, but cuDNN's transposed
+# convolution may sum with atomics.
+MONO_GRAPH_TOL = 1e-5
 
 
 def mono_forward_numbers(net, x, cycles_per_ms, tag):
@@ -1235,6 +1287,226 @@ def phase_surface(smi):
     return result, kernels
 
 
+# ---- 3i. the compiled-program caches as CUDA graphs ----
+
+
+def _graph_numbers(entry):
+    """A CapturedCall's first-use numbers."""
+    return {"warmup_ms": entry.warmup_ms, "capture_ms": entry.capture_ms,
+            "instantiate_ms": entry.instantiate_ms, "pool_bytes": entry.pool_bytes}
+
+
+def _split_numbers(split):
+    return {k: split[k] for k in ("host_ms", "host_behind_sleep_ms", "device_events_ms",
+                                  "kernel_ms", "span_ms", "kernels", "card_idle_share")}
+
+
+def _hold_same(tag, got, want):
+    for name, g, w in zip(("disparity", "depth"), got, want):
+        if (g is None) != (w is None) or (g is not None and not (
+                g.dtype == w.dtype and torch.equal(g, w))):
+            raise AssertionError(f"3i {tag}: the graphed {name} differs from the eager one")
+
+
+def graph_cell(tag, core, left, right, cycles_per_ms, expected=None):
+    """One stereo cell with graphs: the first estimate_depth_async (warm-up
+    and capture, timed) and a replay equal bit for bit to the eager
+    pipeline on the same raw pair (already on the card), the replay's
+    (calls, launches) equal to the eager pair's (and to `expected`, phase
+    3's, where given); then eager against graphed: host enqueue, kernel
+    ms, idle share (host_device_split) and ms per pair with the read-back;
+    the peak of allocated device memory over the cell (the graph's pool
+    beside the eager pair's working set). Returns the numbers to print."""
+    from depthestimation_torch.ops import cuda_sgm
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = core.estimate_depth_async(left, right)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    (entry,) = core._graph_cache.values()
+    cuda_sgm.reset_launches()
+    want = eager_pair(core, left, right)
+    torch.cuda.synchronize()
+    eager_counts = counted()
+    cuda_sgm.reset_launches()
+    got = core.estimate_depth_async(left, right)
+    torch.cuda.synchronize()
+    counts = counted()
+    if counts != eager_counts or (expected is not None and counts != expected):
+        raise AssertionError(f"3i {tag}: a replay made (calls, launches) {counts}, the eager "
+                             f"pair {eager_counts}, phase 3 {expected}")
+    _hold_same(tag, got, want)
+    _hold_same(tag + " (first call)", first, want)
+    del first, got, want
+
+    def read(out):
+        return [t.cpu() for t in out if t is not None]
+
+    out = {"shape": list(left.shape), "num_disp": core.cfg.num_disp,
+           "counts": counts, "first_call_ms": first_ms, **_graph_numbers(entry),
+           "eager": _split_numbers(host_device_split(lambda: eager_pair(core, left, right),
+                                                     cycles_per_ms)),
+           "graphed": _split_numbers(host_device_split(
+               lambda: core.estimate_depth_async(left, right), cycles_per_ms)),
+           "eager_ms_per_pair": host_ms(lambda: read(eager_pair(core, left, right))),
+           "graphed_ms_per_pair": host_ms(lambda: read(core.estimate_depth_async(left, right)))}
+    out["profiler_sees_replay"] = out["graphed"]["kernels"] > 0
+    out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"[3i] {tag}: replay == eager (bit for bit), (calls, launches) {counts}; {out}")
+    return out
+
+
+def phase_graphs(pair, raw_pair, counts_of, cycles_per_ms, smi):
+    """The graphs against the eager functions: the stereo cells of phase 3
+    and both Middlebury shapes of 3h (graph_cell), a temporal sequence with
+    a reset, the injected-matcher seam, and the mono `small` forward at
+    518x518. Returns the numbers to print."""
+    import gc
+
+    from depthestimation_torch import parse_calib_file
+    from depthestimation_torch.io import png
+    from depthestimation_torch.io.input import _area_downscale_np
+    from depthestimation_torch.models.mono import MonoDepthModel, preprocess_image
+    from depthestimation_torch.ops import cuda_sgm
+    from depthestimation_torch.pipeline import (StereoPipeline, postprocess_and_depth,
+                                                raw_disparity)
+
+    dev = torch.device("cuda")
+    result = {"card": smi}
+
+    def on_card(imgs):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in imgs]
+
+    def pipe(cfg_kw, fast, downscale=1.0):
+        core = StereoPipeline(downscale_factor=downscale, fast_mode=fast, device="cuda")
+        core.configure(**cfg_kw)
+        return core
+
+    base = dict(num_disp=D, focal_length=1000.0, baseline=0.1)
+    rig = dict(num_disp=D, sgbm_mode="hh4", **NORTH_STAR, **mild_rig(H, W))
+    left, right = on_card(pair)
+    raw_l, raw_r = on_card(raw_pair)
+    cells = {
+        "default": (base, False, (left, right), "a default"),
+        "north_star": (dict(base, **NORTH_STAR), True, (left, right), None),
+        "rectified_hh4": (rig, True, (raw_l, raw_r), "b rectified"),
+        "hh": (dict(base, sgbm_mode="hh", **NORTH_STAR), True, (left, right), "c hh"),
+        "census": (dict(base, cost="census", **NORTH_STAR), True, (left, right), "c census"),
+    }
+    result["cells"] = {}
+    for tag, (kw, fast, (cl, cr), path) in cells.items():
+        core = pipe(kw, fast)
+        result["cells"][tag] = graph_cell(tag, core, cl, cr, cycles_per_ms,
+                                          counts_of.get(path))
+        del core
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- the Middlebury shapes of 3h: the example's pair, downscaled 0.5 --
+    paths = {side: os.path.join(SURFACE_DIR, side + ".png") for side in ("left", "right")}
+    small = on_card([_area_downscale_np(png.read_png(paths[side])[0], 0.5)
+                     for side in ("left", "right")])
+    mid = dict(num_disp=MIDDLEBURY["ndisp"], sgbm_mode="sgbm_3way",
+               focal_length=MIDDLEBURY["focal_px"], baseline=MIDDLEBURY["baseline_mm"] / 1000.0,
+               doffs=MIDDLEBURY["doffs"])
+    calib = dict(parse_calib_file(os.path.join(SURFACE_DIR, "calib.txt"))["sgbm_kwargs"],
+                 sgbm_mode="sgbm_3way")
+    h_full, w_full = MIDDLEBURY["height"], MIDDLEBURY["width"]
+    for tag, kw, remap_ in ((f"middlebury_{h_full // 2}x{w_full // 2}x144", mid, False),
+                            (f"middlebury_{h_full}x{w_full}x144", calib, True)):
+        core = pipe(kw, False, downscale=0.5)
+        expected = {"cost_volume": (1, 1), "hscan": (1, 2), "rowsweep": (1, 1)}
+        if remap_:
+            expected["remap"] = (1, 1)
+        result["cells"][tag] = graph_cell(tag, core, *small, cycles_per_ms, expected)
+        del core
+        gc.collect()
+        torch.cuda.empty_cache()
+    del small
+
+    # -- a temporal sequence with a reset: the live smoother on the rig --
+    core = pipe(dict(rig, **LIVE), False)
+    frames = list(zip(*drifted(raw_pair, 3)))
+    prev, keys = None, []
+    for i, (fl, fr) in enumerate(frames):
+        if i == 2:
+            core.reset_temporal()
+            prev = None
+        fl, fr = on_card((fl, fr))
+        got = core.estimate_depth_async(fl, fr)
+        want = eager_pair(core, fl, fr, prev)
+        prev = want[0]
+        _hold_same(f"temporal frame {i}", got, want)
+    keys = sorted(k[-1] for k in core._graph_cache)
+    if keys != [False, True]:
+        raise AssertionError(f"3i temporal: entries {keys}")
+    result["temporal"] = {"frames": 3, "reset_before": 2, "entries": len(keys), "equal": True}
+    log("[3i] temporal sequence (rectified rig, hole filling, temporal 0.4), 3 frames "
+        "with a reset before the third: == the eager chain (bit for bit)")
+    del core, got, want, prev
+
+    # -- the injected-matcher seam: the kernels' matcher eagerly, the tail replayed --
+    core = pipe(base, False)
+    core.compute_disparity = lambda l, r: raw_disparity(l, r, core.cfg)
+    gl, gr = core.prepare_rectified(left, right)
+    for i in range(3):
+        cuda_sgm.reset_launches()
+        got = core.process_pair_async(gl, gr)
+        torch.cuda.synchronize()
+        counts = counted()
+        want = postprocess_and_depth(raw_disparity(gl, gr, core.cfg), core.cfg, guide=gl)
+        _hold_same(f"injected matcher, pair {i}", got, want)
+        if counts != counts_of["a default"]:
+            raise AssertionError(f"3i injected matcher: (calls, launches) {counts}")
+    (entry,) = core._graph_cache.values()
+    result["injected_matcher"] = {"equal": True, "replays": entry.replays,
+                                  **_graph_numbers(entry)}
+    log(f"[3i] injected matcher: the tail replayed {entry.replays} times, == eager "
+        f"(bit for bit); {result['injected_matcher']}")
+    del core, entry, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the mono net: `small` at 518x518 through predict_async --
+    model = MonoDepthModel.create("small", seed=0, device=dev)
+    img = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 256, (518, 518, 3), dtype=np.uint8)).to(dev)
+
+    def eager_predict():
+        with torch.inference_mode():
+            return model.net(preprocess_image(img, device=dev)[None])[0]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.predict_async(img)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    got = model.predict_async(img)
+    want = eager_predict()
+    err = float((got - want).abs().max() / want.abs().max())
+    (entry,) = model._graph_cache.values()
+    mono = {"shape": [1, 518, 518, 3], "first_call_ms": first_ms, **_graph_numbers(entry),
+            "rel_err_vs_eager": err, "tolerance": MONO_GRAPH_TOL,
+            "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+            "eager": _split_numbers(host_device_split(eager_predict, cycles_per_ms, runs=5)),
+            "graphed": _split_numbers(host_device_split(lambda: model.predict_async(img),
+                                                        cycles_per_ms, runs=5)),
+            "eager_ms": host_ms(lambda: eager_predict().cpu(), runs=11),
+            "graphed_ms": host_ms(lambda: model.predict_async(img).cpu(), runs=11)}
+    mono["profiler_sees_replay"] = mono["graphed"]["kernels"] > 0
+    log(f"[3i] mono small 518: graphed vs eager max abs err / max {err:.3e} "
+        f"(tolerance {MONO_GRAPH_TOL}); {mono}")
+    if not err <= MONO_GRAPH_TOL:
+        raise AssertionError("3i mono: the graphed forward differs from the eager one")
+    result["mono_small_518"] = mono
+    del model, entry
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     import argparse
 
@@ -1489,6 +1761,10 @@ def main() -> int:
     log("[3] ms per 1080p pair: " + ", ".join(
         f"{k} {v:.2f}" for k, v in e2e.items()))
 
+    # Each pipeline holds its CUDA graphs' pools; phase 3i makes its own.
+    del est, ns, rest, e
+    torch.cuda.empty_cache()
+
     # ---- 3d. streaming through StereoDepthEstimatorVideo ----
     streams = phase_streaming((raw_l, raw_r), cycles_per_ms, trace_dir)
 
@@ -1504,6 +1780,10 @@ def main() -> int:
 
     # ---- 3h. examples, tools and entry points on the card ----
     surface_numbers, middlebury = phase_surface(smi)
+
+    # ---- 3i. the CUDA graphs against the eager functions ----
+    graph_numbers = phase_graphs((left_rgb, right_rgb), (raw_l, raw_r), counts_of,
+                                 cycles_per_ms, smi)
 
     # ---- 4. kernels line ----
     # `calls` and `launches` are the counts of one pair of the path named,
@@ -1554,6 +1834,7 @@ def main() -> int:
     print(json.dumps({"mono": mono_numbers}))
     print(json.dumps({"train": train_numbers, "parallel": parallel_numbers}))
     print(json.dumps({"surface": surface_numbers}))
+    print(json.dumps({"graphs": graph_numbers}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

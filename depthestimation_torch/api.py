@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from . import viz
+from .graphs import CapturedCall
 from .io.input import _area_downscale_np, load_image, load_stereo_pair, stereo_stream
 from .io.threaded import PairStager, StereoInputPipeline
 from .metrics import MetricsAggregator, frame_metrics_from_stats
@@ -94,10 +95,12 @@ class StereoDepthEstimatorVideo:
     device defaults to "cuda" and raises RuntimeError when no card is
     usable; pass device="cpu" for the plain versions. On the card, frames
     are staged into its memory on a side stream (by the input thread, or
-    here when use_threading=False), frame N+1 is enqueued before frame N
-    is read back, and each frame's depth and disparity stats come back
-    through non-blocking copies into pinned host memory, waited on by an
-    event only when the frame is yielded.
+    here when use_threading=False), each frame is one replay of the
+    pipeline's CUDA graph and one of the stats graph (pipeline.py,
+    graphs.py; the first frame of a shape captures them), frame N+1 is
+    enqueued before frame N is read back, and each frame's depth and
+    disparity stats come back through non-blocking copies into pinned host
+    memory, waited on by an event only when the frame is yielded.
     """
 
     def __init__(
@@ -140,6 +143,7 @@ class StereoDepthEstimatorVideo:
         # refreshed on every estimate_depth() run.
         self.metrics = MetricsAggregator()
         self._stop_requested = False
+        self._stats_cache = {}
 
     # Consecutive compute/readback failures tolerated by the per-frame
     # error isolation before the stream is declared broken -- the consumer
@@ -177,13 +181,33 @@ class StereoDepthEstimatorVideo:
             torch.where(valid, d, 0.0).sum() / n,
         ])
 
+    def _frame_out(self, disp, depth):
+        """The frame's stats and depth as they go to the host: the
+        stats, and the depth cast to depth_dtype (None without one). One
+        entry per shape (JAX's jitted stats, api.py:157-178): a CUDA graph
+        on the card, the eager function on the CPU."""
+        cast = depth is not None and self.depth_dtype == "float16"
+        args = (disp, depth) if cast else (disp,)
+        key = tuple(tuple(t.shape) for t in args)
+        fn = self._stats_cache.get(key)
+        if fn is None:
+            def fn(disp, depth=None):
+                stats = StereoDepthEstimatorVideo._disp_stats(disp)
+                return (stats,) if depth is None else (stats, depth.to(torch.float16))
+
+            if self.device.type == "cuda":
+                fn = CapturedCall(fn, "frame stats")
+            self._stats_cache[key] = fn
+        out = fn(*args)
+        return out[0], (out[1] if cast else depth)
+
     def _readback(self, disp, depth):
-        """Enqueue the frame's stats and depth for the host: (stats,
-        depth or None, event). On the card both are non-blocking copies
-        into fresh pinned buffers behind the returned event, which the
-        caller waits on before reading them; a yielded depth map keeps
-        its buffer, so no later frame overwrites it."""
-        stats = self._disp_stats(disp)
+        """Enqueue the frame's stats and depth (cast to depth_dtype) for
+        the host: (stats, depth or None, event). On the card both are
+        non-blocking copies into fresh pinned buffers behind the returned
+        event, which the caller waits on before reading them; a yielded
+        depth map keeps its buffer, so no later frame overwrites it."""
+        stats, depth = self._frame_out(disp, depth)
         if self.device.type != "cuda":
             return stats, depth, None
         host = []
@@ -302,12 +326,9 @@ class StereoDepthEstimatorVideo:
                 try:
                     if stager is not None:
                         left, right = stager.adopt(*stager.stage((left, right)))
-                    disp, depth = self.core.estimate_depth_async(left, right)
-                    if depth is not None and self.depth_dtype == "float16":
-                        # Cast on the device: halves the depth map's D2H
-                        # bytes before it crosses the host link.
-                        depth = depth.to(torch.float16)
-                    dispatched = self._readback(disp, depth)
+                    # The float16 cast runs on the device, in _readback:
+                    # it halves the depth map's D2H bytes.
+                    dispatched = self._readback(*self.core.estimate_depth_async(left, right))
                     self.metrics.record_bytes(
                         bytes_in=(getattr(left, "nbytes", 0)
                                   + getattr(right, "nbytes", 0)))

@@ -87,7 +87,9 @@ class PairStager:
 
     def adopt(self, staged, done):
         """Order the current stream after the pair's copy and tell the
-        allocator that stream uses the pair; returns the tensors."""
+        allocator that stream uses the pair; returns the tensors. The wait
+        is enqueued before anything the caller enqueues on the pair, the
+        copy into a CUDA graph's static inputs included (graphs.py)."""
         cur = torch.cuda.current_stream(self.device)
         cur.wait_event(done)
         for t in staged:

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..graphs import CapturedCall
 from ..pipeline import _resolve_device
 from .dpt import DPTConfig, DPTHead
 from .vit import LayerScale, ViT, ViTConfig
@@ -218,6 +219,9 @@ class MonoDepthModel:
 
     net: MonoDepthNet
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
+    # The net's forward per batch shape (JAX's _jit_cache, mono.py:164-176):
+    # a CUDA graph on the card, the net itself on the CPU.
+    _graph_cache: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     @classmethod
     def from_configs(cls, vit_cfg: ViTConfig, dpt_cfg: DPTConfig, seed: int = 0,
@@ -301,14 +305,31 @@ class MonoDepthModel:
         """Move the weights, and all later compute, to `device`."""
         self.device = torch.device(device)
         self.net.to(self.device)
+        self._graph_cache.clear()
         return self
+
+    def _forward(self, batch: torch.Tensor) -> torch.Tensor:
+        """The net on a (B, H, W, 3) batch through the cache's entry for
+        its shape and the TF32 flags (a graph keeps the kernels its
+        capture chose)."""
+        key = (tuple(batch.shape), torch.backends.cudnn.allow_tf32,
+               torch.backends.cuda.matmul.allow_tf32)
+        fn = self._graph_cache.get(key)
+        if fn is None:
+            fn = CapturedCall(self.net, "MonoDepthNet") if self.device.type == "cuda" else self.net
+            self._graph_cache[key] = fn
+        return fn(batch)
 
     @torch.inference_mode()
     def predict_async(self, image) -> torch.Tensor:
         """uint8 RGB image (H, W, 3) -> relative depth (H', W') float32 on
-        the model's device, enqueued without waiting for the card."""
+        the model's device, enqueued without waiting for the card. The
+        preprocessing runs eagerly; on the card the net is one replay of
+        its CUDA graph for the batch's shape, captured on first use
+        (graphs.py). The weights are read in place, so load new ones
+        into the net's tensors (load_state_dict), not by replacing them."""
         x = preprocess_image(image, device=self.device)
-        return self.net(x[None])[0]
+        return self._forward(x[None])[0]
 
     def predict(self, image) -> np.ndarray:
         """Single RGB uint8 image (H, W, 3) -> relative depth (H', W') at

@@ -81,12 +81,13 @@ def compute_weight_mat(n_in: int, n_out: int, method: str = "linear",
     return torch.where(inside[None, :], weights, 0.0)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _weight_mat(n_in: int, n_out: int, method: str, antialias: bool,
                 device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """compute_weight_mat in `dtype`, built once per device. Built outside
     inference mode, so that later autograd use of the cached tensor is
-    allowed."""
+    allowed. Never evicted: a captured CUDA graph (graphs.py) reads the
+    tensor's memory on every replay."""
     with torch.inference_mode(False):
         return compute_weight_mat(n_in, n_out, method, antialias, device).to(dtype)
 

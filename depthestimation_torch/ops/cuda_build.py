@@ -12,6 +12,10 @@ Every wrapper (ops/cuda_sgm.py, ops/remap.py) takes a tensor on the CPU
 through its plain version and launches its kernel for a tensor on the
 card; it never falls back. Each launch adds one to LAUNCHES[name], and
 each wrapper call that launched its kernels adds one to CALLS[name].
+A wrapper called while a CUDA graph is captured (graphs.py) counts as
+well; the capture takes that change back (set_counts) and adds it again
+on every replay (add_counts), so the counts are the launches the card
+ran.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["LAUNCHES", "CALLS", "reset_launches", "load_library", "build_log"]
+__all__ = ["LAUNCHES", "CALLS", "reset_launches", "counts", "set_counts", "add_counts",
+           "load_library", "build_log"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -134,6 +139,24 @@ def reset_launches() -> None:
         CALLS[name] = 0
 
 
+def counts():
+    """(LAUNCHES, CALLS) as copies."""
+    return dict(LAUNCHES), dict(CALLS)
+
+
+def set_counts(snapshot) -> None:
+    """Set LAUNCHES and CALLS back to a counts() snapshot."""
+    LAUNCHES.update(snapshot[0])
+    CALLS.update(snapshot[1])
+
+
+def add_counts(delta) -> None:
+    """Add a (launches, calls) pair of dicts, as counts() gives them."""
+    for total, more in zip((LAUNCHES, CALLS), delta):
+        for name, n in more.items():
+            total[name] += n
+
+
 def on_card(t) -> bool:
     """False for a CPU tensor (plain version), True for a CUDA one."""
     if t.device.type == "cpu":
@@ -169,7 +192,9 @@ def called(name: str) -> None:
 
 
 def stream() -> int:
-    """The current CUDA stream, as the C functions take it."""
+    """The current CUDA stream, as the C functions take it: under a CUDA
+    graph's capture that is the capturing stream, so every launch of the
+    C functions lands in the graph."""
     import torch
 
     return torch.cuda.current_stream().cuda_stream

@@ -6,10 +6,15 @@ stereo_core.py). Stage order mirrors _process_pair (stereo_core.py:162-200):
   speckle filter -> left-band crop -> fast-mode median OR full
   postprocess -> optional WLS -> disparity->depth.
 
-PyTorch runs eagerly, so there is no compilation cache: every call runs
-the stages directly on the pipeline's device. The matcher and the
-rectification remap are CUDA kernels on the card and their plain versions
-on the CPU (ops/cuda_sgm.py, ops/remap.py).
+The functions below run eagerly. StereoPipeline keeps the counterpart of
+the JAX package's jit cache: one entry per (config, shape, fast_mode,
+downscale_factor, temporal) and the same keys for the matcher alone, the
+tail behind an injected matcher and the fused rectify-and-match step. On
+the card an entry is a CUDA graph of the eager function, captured on its
+first call and replayed on every later one (graphs.py); on the CPU it is
+the eager function itself. The matcher and the rectification remap are
+CUDA kernels on the card and their plain versions on the CPU
+(ops/cuda_sgm.py, ops/remap.py).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 
 from .calib import RectificationCache
 from .config import SGMConfig
+from .graphs import CapturedCall
 from .ops import color, costs, cuda_sgm, depth as depth_ops, filters, remap, sgm, wls
 
 __all__ = ["StereoPipeline", "compute_disparity_volume", "raw_disparity",
@@ -145,12 +151,27 @@ def stereo_depth_fn(
                                  guide=left, prev_disp=prev_disp)
 
 
+def _rectify(left, right, cfg: SGMConfig, maps):
+    """Raw pair (RGB or gray, any dtype) -> rectified float32 grayscale
+    pair (JAX pipeline.py:210-245): grayscale, the bilinear resize of an
+    image that differs from the calibration size, then one remap launch
+    for both images through maps = (map_x, map_y), each (2, H, W)."""
+    size_hw = (cfg.calib.image_height, cfg.calib.image_width)
+    gray = [color.to_grayscale(img).to(torch.float32) for img in (left, right)]
+    gray = [g if tuple(g.shape) == size_hw else color.resize_bilinear(g, size_hw)
+            for g in gray]
+    rect = remap.remap_bilinear(torch.stack(gray), *maps)
+    return rect[0], rect[1]
+
+
 class StereoPipeline:
     """Stateful facade over the pipeline (the StereoCore equivalent).
 
-    Holds the frozen config, the device, a rectification-map cache and the
-    temporal-smoother carry. device defaults to "cuda" and raises RuntimeError when no card is
-    usable; pass device="cpu" for the plain versions.
+    Holds the frozen config, the device, the cache of compiled programs (a
+    CUDA graph per key on the card, module docstring), a
+    rectification-map cache and the temporal-smoother carry. device
+    defaults to "cuda" and raises RuntimeError when no card is usable;
+    pass device="cpu" for the plain versions.
     """
 
     def __init__(self, cfg: Optional[SGMConfig] = None, downscale_factor: float = 1.0,
@@ -160,6 +181,7 @@ class StereoPipeline:
         self.fast_mode = fast_mode
         self.device = _resolve_device(device)
         self._rect_cache = RectificationCache()
+        self._graph_cache = {}
         self._prev_disp = None  # temporal-smoother state (device tensor)
         self.disparity_map = None
         self.depth_map = None
@@ -169,6 +191,10 @@ class StereoPipeline:
     # -- config management (configure_sgbm parity, stereo_core.py:77-123) --
     def configure(self, **kwargs) -> None:
         self.cfg = self.cfg.updated(downscale_factor=self.downscale_factor, **kwargs)
+        # JAX keeps the old configs' entries. A graph's pool holds its
+        # frame's whole working set (GBs at 1080p), so only the new
+        # config's entries stay.
+        self._graph_cache = {k: v for k, v in self._graph_cache.items() if self.cfg in k}
         # The temporal carry has the old config's crop width.
         self.reset_temporal()
 
@@ -191,26 +217,76 @@ class StereoPipeline:
         after a RuntimeWarning if an image differs from it, then one remap
         launch for both images through the cached device maps."""
         cfg = self.cfg
-        gray = [color.to_grayscale(self._tensor(img)).to(torch.float32)
-                for img in (left_img, right_img)]
+        left, right = self._tensor(left_img), self._tensor(right_img)
         if not cfg.has_full_calibration():
-            return gray[0], gray[1]
-        size_hw = (cfg.calib.image_height, cfg.calib.image_width)
-        if any(tuple(g.shape) != size_hw for g in gray):
-            # Reference parity: rectify.py:99-104 warns before resizing an
-            # image that disagrees with the calibration size.
+            return (color.to_grayscale(left).to(torch.float32),
+                    color.to_grayscale(right).to(torch.float32))
+        self._warn_size(left, right)
+        return _rectify(left, right, cfg, self._maps())
+
+    def _maps(self):
+        return self._rect_cache.device_maps(self.cfg.calib, self.cfg.baseline, 1.0,
+                                            self.device)
+
+    def _warn_size(self, left, right):
+        """Reference parity: rectify.py:99-104 warns before resizing an
+        image that disagrees with the calibration size."""
+        size_hw = (self.cfg.calib.image_height, self.cfg.calib.image_width)
+        if tuple(left.shape[:2]) != size_hw or tuple(right.shape[:2]) != size_hw:
             warnings.warn(
-                f"Image size {tuple(gray[0].shape)} does not match "
+                f"Image size {tuple(left.shape[:2])} does not match "
                 f"calibration size {size_hw}; resizing to match.",
                 RuntimeWarning,
-                stacklevel=2,
+                stacklevel=3,
             )
-            gray = [g if tuple(g.shape) == size_hw
-                    else color.resize_bilinear(g, size_hw) for g in gray]
-        map_x, map_y = self._rect_cache.device_maps(
-            cfg.calib, cfg.baseline, 1.0, self.device)
-        rect = remap.remap_bilinear(torch.stack(gray), map_x, map_y)
-        return rect[0], rect[1]
+
+    # -- the compiled-program cache (JAX pipeline.py:248-345) --
+    def _entry(self, key, fn, name):
+        """The cache's entry for key, made from fn on first use: a CUDA
+        graph of fn on the card, fn itself on the CPU."""
+        entry = self._graph_cache.get(key)
+        if entry is None:
+            entry = CapturedCall(fn, name) if self.device.type == "cuda" else fn
+            self._graph_cache[key] = entry
+        return entry
+
+    def _get_graphed(self, shape, temporal=False):
+        """stereo_depth_fn on a rectified grayscale pair (and the previous
+        cropped disparity when temporal): JAX's _get_jitted."""
+        key = (self.cfg, shape, self.fast_mode, self.downscale_factor, temporal)
+        cfg, ds, fm = self.cfg, self.downscale_factor, self.fast_mode
+
+        def run(left, right, prev_disp=None):
+            return stereo_depth_fn(left, right, cfg, ds, fm, prev_disp=prev_disp)
+
+        return self._entry(key, run, "stereo_depth_fn")
+
+    def _get_post_graphed(self, shape, temporal=False):
+        """postprocess_and_depth behind an injected matcher, the guide (the
+        rectified left image) riding along for WLS: JAX's
+        _get_post_jitted."""
+        key = ("post", self.cfg, shape, self.fast_mode, self.downscale_factor, temporal)
+        cfg, ds, fm = self.cfg, self.downscale_factor, self.fast_mode
+
+        def run(disp, guide, prev_disp=None):
+            return postprocess_and_depth(disp, cfg, ds, fm, guide=guide, prev_disp=prev_disp)
+
+        return self._entry(key, run, "postprocess_and_depth")
+
+    def _get_rect_graphed(self, shape, temporal=False):
+        """Grayscale, resize, remap, matcher and tail from the raw pair as
+        one replay: JAX's _get_rect_jitted. `shape` is the raw pair's
+        shapes and dtypes (jax.jit keys on both through its arguments)."""
+        key = ("rect", self.cfg, shape, self.fast_mode, self.downscale_factor, temporal)
+        cfg, ds, fm = self.cfg, self.downscale_factor, self.fast_mode
+        # The entry holds the maps: its graph reads their memory.
+        maps = self._maps()
+
+        def run(left, right, prev_disp=None):
+            rl, rr = _rectify(left, right, cfg, maps)
+            return stereo_depth_fn(rl, rr, cfg, ds, fm, prev_disp=prev_disp)
+
+        return self._entry(key, run, "rectify + stereo_depth_fn")
 
     def compute_disparity(self, rectified_l, rectified_r):
         """Matcher-only stage (compute_disparity parity,
@@ -219,7 +295,9 @@ class StereoPipeline:
         process_pair and keeps the postprocess/depth tail."""
         left = self._tensor(rectified_l).to(torch.float32)
         right = self._tensor(rectified_r).to(torch.float32)
-        return raw_disparity(left, right, self.cfg)
+        cfg = self.cfg
+        return self._entry(("matcher", cfg, tuple(left.shape)),
+                           lambda l, r: raw_disparity(l, r, cfg), "raw_disparity")(left, right)
 
     def process_pair_async(self, left_rect, right_rect):
         """Like process_pair, but returns the tensors (disparity, depth or
@@ -236,18 +314,26 @@ class StereoPipeline:
         """
         left = self._tensor(left_rect).to(torch.float32)
         right = self._tensor(right_rect).to(torch.float32)
-        prev = self._prev_disp if self.cfg.temporal_alpha > 0 else None
+        prev = self._prev()
         if "compute_disparity" in self.__dict__:
             disp = self._tensor(self.compute_disparity(left, right)).to(torch.float32)
+            out = self._get_post_graphed(tuple(disp.shape), bool(prev))(disp, left, *prev)
         else:
-            disp = raw_disparity(left, right, self.cfg)
-        disp, depth_m = postprocess_and_depth(
-            disp, self.cfg, self.downscale_factor, self.fast_mode,
-            guide=left, prev_disp=prev,
-        )
+            out = self._get_graphed(tuple(left.shape), bool(prev))(left, right, *prev)
+        return self._carry(out)
+
+    def _prev(self):
+        """(the previous frame's disparity,) for the temporal entry, or ()
+        for the first frame and without the smoother."""
+        if self.cfg.temporal_alpha > 0 and self._prev_disp is not None:
+            return (self._prev_disp,)
+        return ()
+
+    def _carry(self, out):
+        """Keep the frame's disparity for the temporal smoother."""
         if self.cfg.temporal_alpha > 0:
-            self._prev_disp = disp
-        return disp, depth_m
+            self._prev_disp = out[0]
+        return out
 
     def process_pair(self, left_rect, right_rect):
         """Full pipeline on an already-rectified pair (_process_pair
@@ -275,8 +361,15 @@ class StereoPipeline:
         """estimate_depth without the device->host copy: the tensors
         (disparity, depth or None) on the pipeline's device, so the caller
         can enqueue the next frame first (depthestimation_tpu/
-        pipeline.py:408-436). With full calibration the pair is rectified
-        first (grayscale, the resize after its RuntimeWarning, one remap
-        launch); nothing on the way waits for the card."""
+        pipeline.py:408-436). With full calibration (and no injected
+        matcher) grayscale, the resize after its RuntimeWarning, the remap
+        and the rest run as one entry of the cache; nothing on the way
+        waits for the card."""
+        if self.cfg.has_full_calibration() and "compute_disparity" not in self.__dict__:
+            left, right = self._tensor(left_source), self._tensor(right_source)
+            self._warn_size(left, right)
+            prev = self._prev()
+            shape = tuple((tuple(t.shape), t.dtype) for t in (left, right))
+            return self._carry(self._get_rect_graphed(shape, bool(prev))(left, right, *prev))
         left_r, right_r = self.prepare_rectified(left_source, right_source)
         return self.process_pair_async(left_r, right_r)
