@@ -399,7 +399,8 @@ def run_stream(frames, sgbm, expected, tag, **kw):
 # the optimizer's fused passes, the softmax.
 KERNEL_CLASSES = (("conv", ("conv", "cudnn", "wgrad", "dgrad", "fprop", "implicit")),
                   ("gemm", ("gemm", "cutlass", "xmma", "cublas")),
-                  ("nccl", ("nccl",)), ("optimizer", ("multi_tensor", "adam")),
+                  ("all_gather", ("allgather",)), ("nccl", ("nccl",)),
+                  ("optimizer", ("multi_tensor", "adam")),
                   ("softmax", ("softmax",)))
 
 
@@ -816,16 +817,81 @@ def _train_step_card_vs_cpu(net, mesh, images, targets):
            "grad_rel_err": 0.0, "weight_err_firm": 0.0, "weight_err_all": 0.0,
            "cpu_step_s": cpu_s}
     out["loss_rel_err"] = abs(loss - out["cpu_loss"]) / abs(out["cpu_loss"])
-    ref_params = dict(ref.named_parameters())
-    for name, p in local.named_parameters():
+    named = {n: (p.grad, p.detach()) for n, p in local.named_parameters()}
+    out.update(_step_errors(named, dict(ref.named_parameters())))
+    return out
+
+
+def _step_errors(named, ref_params):
+    """The worst errors of a step's {name: (gradient, weight after it)}
+    against the reference net's parameters after its step: gradients
+    relative to each parameter's max |g|, weights where the reference
+    gradient is above TRAIN_TOL["grad"] of its max (firm) and anywhere."""
+    out = {"grad_rel_err": 0.0, "weight_err_firm": 0.0, "weight_err_all": 0.0}
+    for name, (grad, weight) in named.items():
         g = ref_params[name].grad
         out["grad_rel_err"] = max(out["grad_rel_err"],
-                                  float((p.grad.cpu() - g).abs().max() / g.abs().max()))
-        diff = (p.detach().cpu() - ref_params[name].detach()).abs()
+                                  float((grad.to(g.device) - g).abs().max() / g.abs().max()))
+        diff = (weight.to(g.device) - ref_params[name].detach()).abs()
         firm = g.abs() > TRAIN_TOL["grad"] * g.abs().max()
         if firm.any():
             out["weight_err_firm"] = max(out["weight_err_firm"], float(diff[firm].max()))
         out["weight_err_all"] = max(out["weight_err_all"], float(diff.max()))
+    return out
+
+
+def _step_held(held) -> bool:
+    return (held["loss_rel_err"] <= TRAIN_TOL["loss"]
+            and held["grad_rel_err"] <= TRAIN_TOL["grad"]
+            and held["weight_err_firm"] <= TRAIN_TOL["weight"]
+            and held["weight_err_all"] <= TRAIN_TOL["noise_weight"])
+
+
+def _train_data():
+    """phase 3f's seeded batch: TRAIN_BATCH images in [0, 1] and targets
+    in [0.5, 2], TRAIN_HW square, float32 numpy."""
+    rng = np.random.default_rng(0)
+    hw = (TRAIN_HW, TRAIN_HW)
+    images = rng.uniform(0, 1, (TRAIN_BATCH, *hw, 3)).astype(np.float32)
+    targets = rng.uniform(0.5, 2.0, (TRAIN_BATCH, *hw)).astype(np.float32)
+    return images, targets
+
+
+def _train_run(net, mesh, images, targets, cycles_per_ms):
+    """TRAIN_STEPS make_train_step steps from `net` on `mesh` at
+    PyTorch's TF32 defaults (finite, falling losses), the peak memory
+    allocated from the train state's creation on, and one step's times
+    (events, host clock, profiler split). Every rank of the mesh calls it
+    alike. Returns the numbers."""
+    from depthestimation_torch.models import train
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    xc = torch.from_numpy(images).to(dev)
+    tc = torch.from_numpy(targets).to(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    local, opt, shardings = train.make_sharded_train_state(net, mesh, images.shape[1:3],
+                                                            TRAIN_LR, seed=None)
+    step = train.make_train_step(local, opt, mesh, shardings)
+    losses = [float(step(xc, tc)) for _ in range(TRAIN_STEPS)]
+    out = {"losses": losses, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses {losses} not finite and falling")
+
+    # -- times of one step (the card keeps training) --
+    split = host_device_split(lambda: step(xc, tc), cycles_per_ms)
+    wall = host_ms(lambda: float(step(xc, tc)), runs=5)
+    out["step"] = {"events_ms": split["device_events_ms"], "host_clock_ms": wall,
+                   "images_per_s_events": TRAIN_BATCH * 1e3 / split["device_events_ms"],
+                   "images_per_s_host_clock": TRAIN_BATCH * 1e3 / wall,
+                   "kernels": split["kernels"], "kernel_ms": split["kernel_ms"],
+                   "kernel_ms_by_class": split["kernel_ms_by_class"],
+                   "host_enqueue_ms": split["host_ms"],
+                   "card_idle_share": split["card_idle_share"],
+                   "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+                   "matmul_tf32": torch.backends.cuda.matmul.allow_tf32}
+    del local, opt, step, xc, tc
+    torch.cuda.empty_cache()
     return out
 
 
@@ -838,18 +904,14 @@ def phase_train(cycles_per_ms, smi):
 
     import torch.distributed as dist
 
-    from depthestimation_torch.models import train
     from depthestimation_torch.models.mono import MonoDepthModel
     from depthestimation_torch.parallel.mesh import make_mesh
 
     mesh = make_mesh((1, 1, 1))
     if dist.get_backend() != "nccl" or mesh.device_type != "cuda":
         raise AssertionError(f"train: group {dist.get_backend()}, mesh {mesh.device_type}")
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
     hw = (TRAIN_HW, TRAIN_HW)
-    images = rng.uniform(0, 1, (TRAIN_BATCH, *hw, 3)).astype(np.float32)
-    targets = rng.uniform(0.5, 2.0, (TRAIN_BATCH, *hw)).astype(np.float32)
+    images, targets = _train_data()
     net = MonoDepthModel.create("small", seed=0, image_size=TRAIN_HW, device="cpu").net
     result = {"card": smi, "batch": [TRAIN_BATCH, *hw, 3], "lr": TRAIN_LR, "mesh": [1, 1, 1],
               "backend": dist.get_backend(), "tolerance": TRAIN_TOL}
@@ -862,10 +924,7 @@ def phase_train(cycles_per_ms, smi):
     held = _train_step_card_vs_cpu(lifted, mesh, images, targets)
     result["card_vs_cpu"] = dict(held, head_out_bias=TRAIN_OUT_BIAS)
     log(f"[3f] one step, TF32 off, output bias {TRAIN_OUT_BIAS}, card vs CPU: {held}")
-    if not (held["pred_min"] > 0.1 and held["loss_rel_err"] <= TRAIN_TOL["loss"]
-            and held["grad_rel_err"] <= TRAIN_TOL["grad"]
-            and held["weight_err_firm"] <= TRAIN_TOL["weight"]
-            and held["weight_err_all"] <= TRAIN_TOL["noise_weight"]):
+    if not (held["pred_min"] > 0.1 and _step_held(held)):
         raise AssertionError("train: the card's step differs from the CPU's")
     result["card_vs_cpu_seeded_init"] = _train_step_card_vs_cpu(net, mesh, images, targets)
     log(f"[3f] one step at the seeded init (reported, not held): "
@@ -873,35 +932,10 @@ def phase_train(cycles_per_ms, smi):
     del lifted
 
     # -- TRAIN_STEPS steps from the seeded weights, PyTorch's defaults --
-    xc = torch.from_numpy(images).to(dev)
-    tc = torch.from_numpy(targets).to(dev)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    local, opt, shardings = train.make_sharded_train_state(net, mesh, hw, TRAIN_LR, seed=None)
-    step = train.make_train_step(local, opt, mesh, shardings)
-    losses = [float(step(xc, tc)) for _ in range(TRAIN_STEPS)]
-    result["losses"] = losses
-    result["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
-    log(f"[3f] {TRAIN_STEPS} steps: losses {losses}; peak memory "
+    result.update(_train_run(net, mesh, images, targets, cycles_per_ms))
+    log(f"[3f] {TRAIN_STEPS} steps: losses {result['losses']}; peak memory "
         f"{result['max_memory_allocated_bytes'] / 2**30:.2f} GiB")
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train: losses {losses} not finite and falling")
-
-    # -- times of one step (the card keeps training) --
-    split = host_device_split(lambda: step(xc, tc), cycles_per_ms)
-    wall = host_ms(lambda: float(step(xc, tc)), runs=5)
-    result["step"] = {"events_ms": split["device_events_ms"], "host_clock_ms": wall,
-                      "images_per_s_events": TRAIN_BATCH * 1e3 / split["device_events_ms"],
-                      "images_per_s_host_clock": TRAIN_BATCH * 1e3 / wall,
-                      "kernels": split["kernels"], "kernel_ms": split["kernel_ms"],
-                      "kernel_ms_by_class": split["kernel_ms_by_class"],
-                      "host_enqueue_ms": split["host_ms"],
-                      "card_idle_share": split["card_idle_share"],
-                      "cudnn_tf32": torch.backends.cudnn.allow_tf32,
-                      "matmul_tf32": torch.backends.cuda.matmul.allow_tf32}
     log(f"[3f] one step: {result['step']}")
-    del local, opt, step, xc, tc
-    torch.cuda.empty_cache()
     return mesh, result
 
 
@@ -969,10 +1003,160 @@ def _multi_gpu_rank(rank, world, port):
     dist.destroy_process_group()
 
 
-def phase_parallel(mesh):
+# predict_sharded at (1, 1, 4) against the single forward, both float32
+# with TF32 off, relative to the forward's max: the partial products of
+# proj and fc2 summed over the ranks change the order of additions only.
+TP_PREDICT_TOL = 1e-5
+
+
+def _tensor_parallel_rank(rank, world, port, cycles_per_ms, out_path):
+    """One rank of the tensor-parallel check over every GPU, mesh
+    (world // 4, 1, 4). `small`'s 6 heads do not split over 4 'model'
+    ranks, so qkv and proj take JAX's contiguous layout (models/train.py):
+    - one make_train_step with TF32 off from phase 3f's batch and weights
+      (the head's output bias at TRAIN_OUT_BIAS), its gathered gradients
+      and weights held on rank 0 under TRAIN_TOL to the plain step of the
+      whole net on that card (what make_train_step runs at mesh (1, 1, 1),
+      which phase 3f holds to the CPU), and the replicated parameters
+      equal bit for bit across the 'model' ranks after it;
+    - predict_sharded at 2x518x518, TF32 off, within TP_PREDICT_TOL of the
+      max of the single forward on the rank's card;
+    - _train_run at PyTorch's defaults: ms a step, peak memory, and the
+      all-gather's share of the step from the profiler.
+    Rank 0 writes the numbers to out_path as JSON."""
+    import copy
+
+    import torch.distributed as dist
+
+    from depthestimation_torch.models import train
+    from depthestimation_torch.models.mono import MonoDepthModel
+    from depthestimation_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    initialize_distributed(f"localhost:{port}", world, rank)
+    dev = torch.device("cuda", rank)
+    shape = (world // 4, 1, 4)
+    mesh = make_mesh(shape)
+    images, targets = _train_data()
+    net = MonoDepthModel.create("small", seed=0, image_size=TRAIN_HW, device="cpu").net
+    lifted = copy.deepcopy(net)
+    with torch.no_grad():
+        lifted.head.head_out.bias.fill_(TRAIN_OUT_BIAS)
+    out = {"mesh": list(shape), "backend": dist.get_backend(), "processes": world,
+           "batch": [TRAIN_BATCH, TRAIN_HW, TRAIN_HW, 3], "heads": net.vit_cfg.num_heads}
+
+    # -- one step with TF32 off, and the replicas after it --
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    local, opt, shardings = train.make_sharded_train_state(lifted, mesh, images.shape[1:3],
+                                                            TRAIN_LR, seed=None)
+    attn = local.backbone.block_0.attn
+    out["heads_per_rank"] = attn.num_heads
+    out["qkv_rows_per_rank"] = attn.qkv.weight.shape[0]
+    loss = float(train.make_train_step(local, opt, mesh, shardings)(images, targets))
+    grads = train.gather_params({n: p.grad for n, p in local.named_parameters()}, mesh,
+                                shardings)
+    weights = train.gather_params({n: p.detach() for n, p in local.named_parameters()},
+                                  mesh, shardings)
+    model_group = mesh.get_group("model")
+    replicated = torch.cat([p.detach().reshape(-1) for n, p in local.named_parameters()
+                            if shardings[n] is None])
+    first = replicated.clone()
+    dist.broadcast(first, src=dist.get_global_rank(model_group, 0), group=model_group)
+    out["replicas_equal"] = bool(torch.equal(first, replicated))
+    del local, opt, replicated, first
+
+    # -- predict_sharded against the single forward --
+    model = MonoDepthModel.create("small", seed=0, device=dev)
+    x = torch.rand(2, 518, 518, 3, generator=torch.Generator().manual_seed(1))
+    got = model.predict_sharded(x, mesh)
+    with torch.no_grad():
+        want = model.net(x.to(dev)).cpu().numpy()
+    out["predict_sharded"] = {"batch": [2, 518, 518, 3],
+                              "rel_err": float(np.abs(got - want).max() / np.abs(want).max())}
+    del model
+
+    if rank == 0:
+        ref = copy.deepcopy(lifted).to(dev)
+        ref_opt = torch.optim.AdamW(ref.parameters(), lr=TRAIN_LR, betas=(0.9, 0.999),
+                                    eps=1e-8, weight_decay=1e-4)
+        t = torch.from_numpy(targets).to(dev)
+        ref_loss = train.silog_loss(ref(torch.from_numpy(images).to(dev)), t, t > 0)
+        ref_loss.backward()
+        ref_opt.step()
+        held = {"loss": loss, "one_rank_loss": float(ref_loss.detach())}
+        held["loss_rel_err"] = abs(loss - held["one_rank_loss"]) / abs(held["one_rank_loss"])
+        held.update(_step_errors({n: (grads[n], weights[n]) for n in grads},
+                                 dict(ref.named_parameters())))
+        out["vs_one_rank"] = dict(held, head_out_bias=TRAIN_OUT_BIAS, tolerance=TRAIN_TOL)
+        del ref, ref_opt
+    del grads, weights, lifted
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    # -- TRAIN_STEPS steps from the seeded weights, PyTorch's defaults --
+    out.update(_train_run(net, mesh, images, targets, cycles_per_ms))
+    step = out["step"]
+    gather_ms = step["kernel_ms_by_class"].get("all_gather", 0.0)
+    out["all_gather"] = {"kernel_ms": gather_ms,
+                         "share_of_kernel_ms": gather_ms / step["kernel_ms"],
+                         "share_of_step_events_ms": gather_ms / step["events_ms"]}
+    ranks = [None] * world
+    dist.all_gather_object(ranks, (out["max_memory_allocated_bytes"], out["replicas_equal"],
+                                   out["predict_sharded"]["rel_err"]))
+    dist.destroy_process_group()
+    out["max_memory_allocated_bytes_per_rank"] = [r[0] for r in ranks]
+    out["replicas_equal_per_rank"] = [r[1] for r in ranks]
+    out["predict_sharded"]["rel_err_per_rank"] = [r[2] for r in ranks]
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+
+
+def phase_tensor_parallel(world, cycles_per_ms, one_rank):
+    """_tensor_parallel_rank in one process per GPU (world of them, 4 or
+    more), against `one_rank` (_train_run's numbers at mesh (1, 1, 1)).
+    Returns the numbers to print; raises unless every hold passed."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "tensor_parallel.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    mp.spawn(_tensor_parallel_rank, args=(world, port, cycles_per_ms, path), nprocs=world,
+             join=True)
+    with open(path) as f:
+        out = json.load(f)
+    out["one_rank"] = {"mesh": [1, 1, 1], "step": one_rank["step"],
+                       "max_memory_allocated_bytes": one_rank["max_memory_allocated_bytes"]}
+    out["step_host_clock_ms_ratio"] = (out["step"]["host_clock_ms"]
+                                       / one_rank["step"]["host_clock_ms"])
+    log(f"[3g] tensor parallel {out['mesh']}, {out['heads']} heads, "
+        f"{out['heads_per_rank']} a rank: one step vs one rank {out['vs_one_rank']}; "
+        f"replicas equal {out['replicas_equal_per_rank']}; predict_sharded "
+        f"{out['predict_sharded']}; ms a step {out['step']['host_clock_ms']:.2f} "
+        f"(one rank {one_rank['step']['host_clock_ms']:.2f}); peak bytes a rank "
+        f"{out['max_memory_allocated_bytes_per_rank']} (one rank "
+        f"{one_rank['max_memory_allocated_bytes']}); all-gather {out['all_gather']}")
+    held = out["vs_one_rank"]
+    if not (out["heads_per_rank"] == out["heads"] and _step_held(held)
+            and all(out["replicas_equal_per_rank"])
+            and max(out["predict_sharded"]["rel_err_per_rank"]) <= TP_PREDICT_TOL):
+        raise AssertionError("tensor parallel: the (1, 1, 4) step or predict_sharded "
+                             "differs from one rank")
+    return out
+
+
+def phase_parallel(mesh, cycles_per_ms, train_numbers):
     """batch_pipeline, disp_sharded_sgm, the tile function tile by tile
     and predict_sharded on the one-rank mesh; with several GPUs, the first
-    two again with one process per GPU. Returns the numbers to print."""
+    two again with one process per GPU, and with four or more the
+    tensor-parallel check (phase_tensor_parallel) against phase 3f's
+    one-rank step. Returns the numbers to print."""
     import socket
 
     from depthestimation_torch import SGMConfig
@@ -1026,6 +1210,11 @@ def phase_parallel(mesh):
         mp.spawn(_multi_gpu_rank, args=(world, port), nprocs=world, join=True)
         log(f"[3g] {world} processes, one per GPU: batch_pipeline and disp_sharded_sgm "
             "checks passed on every rank")
+    result["tensor_parallel"] = (phase_tensor_parallel(world, cycles_per_ms, train_numbers)
+                                 if world >= 4 else None)
+    if world < 4:
+        log(f"[3g] tensor parallel at mesh (1, 1, 4): processes: None ({world} GPU), "
+            "not run")
     return result
 
 
@@ -1507,16 +1696,48 @@ def phase_graphs(pair, raw_pair, counts_of, cycles_per_ms, smi):
     return result
 
 
+def main_tensor_parallel() -> int:
+    """phase_tensor_parallel alone, against phase 3f's one-rank step
+    (_train_run at mesh (1, 1, 1) on GPU 0), on four GPUs or more."""
+    import torch.distributed as dist
+
+    from depthestimation_torch.models.mono import MonoDepthModel
+    from depthestimation_torch.parallel.mesh import make_mesh
+    from depthestimation_torch.tools import profile_kernels
+
+    world = 1 << (max(torch.cuda.device_count(), 1).bit_length() - 1)
+    smi = smi_line()
+    log(f"[3g] {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()} | {smi}")
+    if world < 4:
+        log(f"chip_smoke --tensor-parallel: needs four GPUs, found {world}")
+        return 1
+    cycles_per_ms = profile_kernels.sleep_cycles_per_ms()
+    mesh = make_mesh((1, 1, 1))
+    net = MonoDepthModel.create("small", seed=0, image_size=TRAIN_HW, device="cpu").net
+    one_rank = _train_run(net, mesh, *_train_data(), cycles_per_ms)
+    dist.destroy_process_group()
+    print(json.dumps({"tensor_parallel": phase_tensor_parallel(world, cycles_per_ms,
+                                                               one_rank)}))
+    print(smi)
+    return 0
+
+
 def main() -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--trace-dir", default=None,
                         help="write phase 3d's profiler traces (Chrome JSON) here")
-    trace_dir = parser.parse_args().trace_dir
+    parser.add_argument("--tensor-parallel", action="store_true",
+                        help="run only phase 3g's tensor-parallel check (four GPUs or "
+                             "more) against the one-rank step, and print its JSON line")
+    args = parser.parse_args()
+    trace_dir = args.trace_dir
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available")
         return 1
+    if args.tensor_parallel:
+        return main_tensor_parallel()
     import torch.nn.functional as F
 
     from depthestimation_torch import StereoDepthEstimator, SGMConfig
@@ -1775,7 +1996,7 @@ def main() -> int:
     import torch.distributed as dist
 
     mesh, train_numbers = phase_train(cycles_per_ms, smi)
-    parallel_numbers = phase_parallel(mesh)
+    parallel_numbers = phase_parallel(mesh, cycles_per_ms, train_numbers)
     dist.destroy_process_group()
 
     # ---- 3h. examples, tools and entry points on the card ----

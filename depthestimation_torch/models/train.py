@@ -7,15 +7,25 @@ the ViT's heads and MLP hidden units ('model' axis), on a DeviceMesh
 and lets GSPMD insert the collectives; here the layout is written out:
 
 - Tensor parallelism holds explicit slices, Megatron style. A rank keeps
-  the q, k and v columns of its own heads of `qkv` and its block of
-  `fc1`'s output units (column parallel; the input's gradient is summed
-  over 'model'), and the matching input rows of `proj` and `fc2` (row
-  parallel: the partial products are summed over 'model', then the bias,
-  held whole, is added once). Explicit slices rather than DTensor's
-  parallelize_module, because `qkv` is not split in contiguous blocks
-  (its output is q | k | v, each over all heads) and because the same
-  code then runs over gloo on the CPU, where the tests hold it to JAX.
-  Every other parameter is replicated.
+  its block of `fc1`'s output units (column parallel; the input's
+  gradient is summed over 'model') and the matching input rows of `fc2`
+  (row parallel: the partial products are summed over 'model', then the
+  bias, held whole, is added once). The attention has two layouts, and
+  the mesh and the net choose:
+  - where 'model' divides the heads, a rank keeps the q, k and v rows of
+    its own heads of `qkv` and attends over those heads alone, and
+    `proj` is row parallel over their columns: no collective beyond the
+    MLP's;
+  - otherwise JAX's own layout (GSPMD splits `qkv`'s 3 * hidden outputs
+    in contiguous blocks wherever the heads fall): a rank keeps one
+    contiguous block of `qkv`'s output rows, the blocks are all-gathered
+    into the whole q | k | v, every rank attends over every head, and
+    `proj` is row parallel over the rank's contiguous block of columns.
+  Explicit slices rather than DTensor's parallelize_module, because the
+  head-aligned `qkv` is not split in contiguous blocks (its output is
+  q | k | v, each over all heads) and because the same code then runs
+  over gloo on the CPU, where the tests hold it to JAX. Every other
+  parameter is replicated.
 - The loss is JAX's global SiLog: n, sum(d) and sum(d^2) over every pixel
   of every data shard (all-reduced over 'data'), so every rank holds the
   global loss. Its backward is the identity on each rank's own sums, so a
@@ -97,37 +107,73 @@ class _CopyToGroup(torch.autograd.Function):
         return grad, None
 
 
+class _GatherFromGroup(torch.autograd.Function):
+    """Forward: the ranks' blocks of the last dim, all-gathered in rank
+    order. Backward: the gradient summed over `group`, this rank's block
+    of it. Every rank computes on the whole gathered tensor, but sends
+    back only its own share of what follows (through its slice of the
+    row-parallel layer after it), so the whole gradient is the sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, -1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        size, rank = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+        return grad.chunk(size, -1)[rank].contiguous(), None
+
+
 class _ColumnParallelLinear(nn.Linear):
     """A rank's output columns of a linear layer; the input is replicated
-    over the group."""
+    over the group. With gather, the ranks' outputs are all-gathered into
+    the whole layer's output."""
 
-    def __init__(self, weight, bias, group):
+    def __init__(self, weight, bias, group, gather: bool = False):
         super().__init__(weight.shape[1], weight.shape[0], device=weight.device)
         self.group = group
+        self.gather = gather
         with torch.no_grad():
             self.weight.copy_(weight)
             self.bias.copy_(bias)
 
     def forward(self, x):
-        return F.linear(_CopyToGroup.apply(x, self.group), self.weight, self.bias)
+        y = F.linear(_CopyToGroup.apply(x, self.group), self.weight, self.bias)
+        return _GatherFromGroup.apply(y, self.group) if self.gather else y
 
 
 class _RowParallelLinear(nn.Linear):
     """A rank's input rows of a linear layer: partial products summed over
-    the group, then the whole bias added once."""
+    the group, then the whole bias added once. With cols (a slice), the
+    input is the whole layer's and the rank takes those columns of it."""
 
-    def __init__(self, weight, bias, group):
+    def __init__(self, weight, bias, group, cols: Optional[slice] = None):
         super().__init__(weight.shape[1], weight.shape[0], device=weight.device)
         self.group = group
+        self.cols = cols
         with torch.no_grad():
             self.weight.copy_(weight)
             self.bias.copy_(bias)
 
     def forward(self, x):
+        if self.cols is not None:
+            x = x[..., self.cols]
         return _SumOverGroup.apply(F.linear(x, self.weight), self.group) + self.bias
 
 
 # ---- layout -------------------------------------------------------------------
+
+
+class _ByHeads(tuple):
+    """The (mesh axis, split dim) of `qkv` in the head-aligned layout: a
+    rank holds the q, k and v rows of its own heads. Equal to the plain
+    tuple, which means contiguous blocks (JAX's PartitionSpec)."""
 
 
 def silog_loss(pred, target, valid, lam: float = 0.5, eps: float = 1e-6,
@@ -155,19 +201,23 @@ def param_shardings_for(net: MonoDepthNet, mesh, image_hw=None) -> Dict[str, Opt
     """{parameter name: (mesh axis, split dim) or None (replicated)} for
     every parameter of the full net, from LOGICAL_RULES. The split
     weights' biases split with them where the output is split (qkv, fc1)
-    and stay whole where it is not (proj, fc2). `qkv`'s dim-0 split is by
-    heads: a rank holds the q, k and v rows of its own heads. image_hw is
-    accepted for the JAX signature; a torch module knows its shapes.
+    and stay whole where it is not (proj, fc2). Where the mesh's 'model'
+    size divides num_heads, `qkv`'s dim-0 split is by heads (_ByHeads: a
+    rank holds the q, k and v rows of its own heads); otherwise it is in
+    contiguous blocks, as JAX lays it out (see the module docstring).
+    image_hw is accepted for the JAX signature; a torch module knows its
+    shapes.
 
-    Raises ValueError unless the mesh's 'model' size divides num_heads
-    and the MLP's hidden width (JAX accepts any divisor of 3 * hidden)."""
+    Raises ValueError unless the 'model' size divides the hidden width
+    and the MLP's hidden width, where JAX's layout raises too."""
     rules = dict(LOGICAL_RULES)
     model = mesh.size(mesh.mesh_dim_names.index("model")) if "model" in mesh.mesh_dim_names else 1
     cfg = net.vit_cfg
     mlp_hidden = int(cfg.hidden_size * cfg.mlp_ratio)
-    if cfg.num_heads % model or mlp_hidden % model:
-        raise ValueError(f"the 'model' axis ({model}) must divide num_heads "
-                         f"({cfg.num_heads}) and the MLP width ({mlp_hidden})")
+    if cfg.hidden_size % model or mlp_hidden % model:
+        raise ValueError(f"the 'model' axis ({model}) must divide the hidden width "
+                         f"({cfg.hidden_size}) and the MLP width ({mlp_hidden})")
+    by_heads = cfg.num_heads % model == 0
     out = {}
     for name, _ in net.named_parameters():
         module, _, leaf = name.rpartition(".")
@@ -177,7 +227,7 @@ def param_shardings_for(net: MonoDepthNet, mesh, image_hw=None) -> Dict[str, Opt
             logical, dim = _PARALLEL_LINEARS[kind]
             axis = rules[logical]
             if axis is not None and (leaf == "weight" or dim == 0):
-                spec = (axis, dim)
+                spec = _ByHeads((axis, dim)) if by_heads and kind == "attn.qkv" else (axis, dim)
         out[name] = spec
     return out
 
@@ -188,10 +238,11 @@ def _mesh_device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
-def _rows_of_rank(full: int, rank: int, size: int, qkv: bool):
+def _rows_of_rank(full: int, rank: int, size: int, by_heads: bool):
     """Indices along the split dim held by `rank`: a contiguous block, or
-    for qkv the block of this rank's heads inside each of q, k and v."""
-    if not qkv:
+    for the head-aligned qkv the block of this rank's heads inside each of
+    q, k and v."""
+    if not by_heads:
         per = full // size
         return torch.arange(rank * per, (rank + 1) * per)
     d = full // 3
@@ -214,19 +265,26 @@ def shard_net(net: MonoDepthNet, mesh, shardings) -> MonoDepthNet:
     if size == 1:
         return net if on_device else copy.deepcopy(net).to(device)
     local = copy.deepcopy(net).to(device)
-    for block in _blocks(local):
-        block.attn.num_heads //= size
+    for i, block in enumerate(_blocks(local)):
+        # The contiguous layout gathers qkv's output: every rank attends
+        # over every head and proj takes its block of their columns.
+        by_heads = isinstance(shardings[f"backbone.block_{i}.attn.qkv.weight"], _ByHeads)
+        if by_heads:
+            block.attn.num_heads //= size
         for kind, (_, dim) in _PARALLEL_LINEARS.items():
             owner_name, attr = kind.split(".")
             owner = getattr(block, owner_name)
             full = getattr(owner, attr)
             idx = _rows_of_rank(full.weight.shape[dim], rank, size,
-                                attr == "qkv").to(device)
+                                by_heads and attr == "qkv").to(device)
             weight = full.weight.detach().index_select(dim, idx)
             if dim == 0:
-                layer = _ColumnParallelLinear(weight, full.bias.detach()[idx], group)
+                layer = _ColumnParallelLinear(weight, full.bias.detach()[idx], group,
+                                              gather=not by_heads and attr == "qkv")
             else:
-                layer = _RowParallelLinear(weight, full.bias.detach(), group)
+                cols = (None if by_heads or attr != "proj"
+                        else slice(int(idx[0]), int(idx[-1]) + 1))
+                layer = _RowParallelLinear(weight, full.bias.detach(), group, cols)
             setattr(owner, attr, layer)
     return local
 
@@ -235,7 +293,8 @@ def gather_params(tensors: Dict[str, torch.Tensor], mesh, shardings) -> Dict[str
     """The full tensors of a sharded net's {name: this rank's tensor}
     (its parameters, their gradients or optimizer moments), gathered over
     their mesh axis, on every rank: what shard_net split, put back
-    together (qkv head by head inside each of q, k and v)."""
+    together (the head-aligned qkv head by head inside each of q, k and
+    v; every other split, the contiguous qkv too, as its parts lie)."""
     out = {}
     for name, t in tensors.items():
         spec = shardings[name]
@@ -246,7 +305,7 @@ def gather_params(tensors: Dict[str, torch.Tensor], mesh, shardings) -> Dict[str
         group, _, size = axis_info(mesh, axis)
         parts = [torch.empty_like(t) for _ in range(size)]
         dist.all_gather(parts, t.contiguous(), group=group)
-        if name.rpartition(".")[0].endswith("attn.qkv"):
+        if isinstance(spec, _ByHeads):
             # each part is [q_r; k_r; v_r]: regroup as [q; k; v].
             parts = [part.chunk(3, dim)[j] for j in range(3) for part in parts]
         out[name] = torch.cat(parts, dim)
@@ -307,7 +366,9 @@ def make_train_step(net: MonoDepthNet, optimizer, mesh, shardings):
     computes them whole, equal only up to the order of float sums (the
     card's backward kernels add with atomics), and Adam's first steps
     move a weight by about lr whatever its gradient's size, so a sign
-    that differs between two ranks would set their copies lr apart."""
+    that differs between two ranks would set their copies lr apart. In
+    the contiguous layout (param_shardings_for) the attention is
+    replicated computation as well, and the same holds."""
     group, index, size = axis_info(mesh, "data")
     model_group, _, model_size = (axis_info(mesh, "model") if "model" in mesh.mesh_dim_names
                                   else (None, 0, 1))

@@ -74,7 +74,8 @@ class Attention(nn.Module):
         b, t, _ = x.shape
         # (B, T, 3, H, Dh) -> three (B, H, T, Dh). Under tensor parallelism
         # (models/train.py) qkv yields this rank's heads only and num_heads
-        # counts them.
+        # counts them where the heads split over the ranks; otherwise qkv
+        # gathers the whole output and every rank attends over every head.
         q, k, v = self.qkv(x).reshape(b, t, 3, self.num_heads, -1).permute(2, 0, 3, 1, 4)
         attn = (q * q.shape[-1]**-0.5) @ k.transpose(-1, -2)
         attn = torch.softmax(attn.float(), dim=-1).to(v.dtype)

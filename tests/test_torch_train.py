@@ -99,13 +99,27 @@ losses += [step(inp["images"], inp["targets"]) for _ in range(2)]
 out["losses"] = torch.stack(losses)
 out.update({"grad:" + n: g for n, g in grads.items()})
 out.update({"weight:" + n: w for n, w in weights.items()})
-out["pred"] = torch.from_numpy(mono.MonoDepthModel(net=net.eval()).predict_sharded(
-    inp["images"], grid))
-try:
-    train.param_shardings_for(net, pm.make_mesh((1, 1, 4), device="cpu"))
-    out["model4_raises"] = torch.tensor(0)
-except ValueError:
-    out["model4_raises"] = torch.tensor(1)
+
+# model 4 over the tiny net's 2 heads: JAX's contiguous qkv / proj layout.
+grid4 = pm.make_mesh((1, 1, 4), device="cpu")
+local, opt, shardings = train.make_sharded_train_state(net, grid4, (56, 56),
+                                                        float(inp["lr"]), seed=None)
+attn = local.backbone.block_0.attn
+out["model4:local_qkv_rows"] = torch.tensor(attn.qkv.weight.shape[0])
+out["model4:num_heads"] = torch.tensor(attn.num_heads)
+step = train.make_train_step(local, opt, grid4, shardings)
+losses = []
+for k in (1, 2):
+    losses.append(step(inp["images"], inp["targets"]))
+    for kind, get in (("grad", lambda p: p.grad), ("weight", lambda p: p.detach())):
+        full = train.gather_params({n: get(p) for n, p in local.named_parameters()}, grid4,
+                                   shardings)
+        out.update({f"model4:{kind}{k}:{n}": t for n, t in full.items()})
+out["model4:losses"] = torch.stack(losses)
+
+model = mono.MonoDepthModel(net=net.eval())
+out["pred"] = torch.from_numpy(model.predict_sharded(inp["images"], grid))
+out["model4:pred"] = torch.from_numpy(model.predict_sharded(inp["images"], grid4))
 
 np.savez(f"{work}/rank{rank}.npz", **{k: v.numpy() for k, v in out.items()})
 dist.destroy_process_group()
@@ -339,9 +353,78 @@ def test_predict_sharded(inputs, rank_out, one_rank):
     np.testing.assert_array_equal(got, want)
 
 
+class _MeshShape:
+    """What param_shardings_for reads of a mesh: its axis names and sizes."""
+
+    mesh_dim_names = ("data", "tile", "model")
+
+    def __init__(self, model):
+        self.shape = (1, 1, model)
+
+    def size(self, dim):
+        return self.shape[dim]
+
+
+@pytest.mark.parametrize("what", ["loss", "gradients", "weights", "second_step",
+                                  "predict_sharded"])
+def test_model4_contiguous_layout_matches_jax(inputs, rank_out, jax_steps, what):
+    """model 4 over the tiny net's 2 heads (mesh (1, 1, 4), JAX's
+    contiguous qkv / proj layout: qkv's output all-gathered, every head on
+    every rank) against JAX's steps at (1, 1, 1): the loss, the gathered
+    gradients and weights of the first step, the second step, and
+    predict_sharded against the net's own forward, with the module's
+    tolerances. The four ranks hold the same gathered tensors bit for bit,
+    so the replicated parameters stayed equal across the 'model' ranks."""
+    keys = [k for k in rank_out[0] if k.startswith("model4:")]
+    for r in range(1, 4):
+        for k in keys:
+            np.testing.assert_array_equal(rank_out[r][k], rank_out[0][k], err_msg=k)
+    out = rank_out[0]
+
+    def tensors(kind):
+        prefix = f"model4:{kind}:"
+        return {k[len(prefix):]: v for k, v in out.items() if k.startswith(prefix)}
+
+    if what == "loss":
+        got, want = float(out["model4:losses"][0]), jax_steps["loss0"]
+        assert abs(got - want) <= LOSS_REL * abs(want)
+    elif what == "gradients":
+        errs = grad_errors(tensors("grad1"), jax_steps["grads"])
+        assert set(errs) == set(tensors("grad1"))
+        worst = max(errs, key=errs.get)
+        assert errs[worst] <= GRAD_REL, (worst, errs[worst])
+    elif what == "weights":
+        check_weights(tensors("weight1"), convert.from_flax_params(jax_steps["params1"]),
+                      [jax_steps["grads"]])
+    elif what == "second_step":
+        got, want = float(out["model4:losses"][1]), jax_steps["loss1"]
+        assert abs(got - want) <= LOSS_REL * abs(want)
+        check_weights(tensors("weight2"), convert.from_flax_params(jax_steps["params2"]),
+                      [jax_steps["grads"], tensors("grad2")])
+    else:
+        net = port_net(convert.from_flax_params(inputs[1])).eval()
+        with torch.no_grad():
+            want = net(torch.from_numpy(inputs[2])).numpy()
+        assert rel_err(out["model4:pred"], want) <= 1e-5
+
+
 def test_model_axis_must_divide_heads(rank_out):
-    """The tiny net's 2 heads do not split over 4 'model' ranks."""
-    assert int(rank_out[0]["model4_raises"]) == 1
+    """The 'model' axis must divide what JAX splits, the hidden and MLP
+    widths (64 and 256), and need not divide the heads: the tiny net's 2
+    heads take model = 4 in JAX's contiguous layout (run on the four gloo
+    ranks, every head on every rank), and model = 3 raises ValueError, as
+    JAX's make_sharded_train_state does."""
+    net = mono.MonoDepthNet(ViTConfig(**TINY), DPTConfig(**TINY_DPT))
+    for model in (3, 5, 6):
+        with pytest.raises(ValueError, match="hidden width"):
+            train.param_shardings_for(net, _MeshShape(model))
+    for model in (1, 2, 4, 8):
+        qkv = train.param_shardings_for(net, _MeshShape(model))["backbone.block_1.attn.qkv.bias"]
+        assert qkv == ("model", 0)
+        assert isinstance(qkv, train._ByHeads) == (TINY["num_heads"] % model == 0), model
+    out = rank_out[0]
+    assert int(out["model4:local_qkv_rows"]) == 3 * TINY["hidden_size"] // 4
+    assert int(out["model4:num_heads"]) == TINY["num_heads"]
 
 
 def test_param_shardings_layout(one_rank):

@@ -15,6 +15,13 @@ group of one rank (mesh (1, 1, 1)), against the CPU.
   path on the card, whose disparity equals the CPU's; disp_sharded_sgm
   equal to the matcher through the kernels; the tile function on the card
   equal to the CPU's, and tile_sharded_disparity to it.
+- With four GPUs: `small` (6 heads) at mesh (1, 1, 4) over NCCL, one
+  process per GPU, in JAX's contiguous qkv / proj layout, against the
+  one-rank step on this process's mesh, with chip_smoke.py phase 3g's
+  holds: one step at 4x518x518 (TF32 off, the head's output bias at 2)
+  under SMALL_TOL, the replicated parameters equal across the 'model'
+  ranks after it, and predict_sharded at 2x518x518 within 1e-5 of the
+  max of the single forward.
 
 Every test here needs an NVIDIA GPU and skips without one. This file
 imports nothing of JAX; on a machine with a card and no JAX, run it
@@ -44,6 +51,9 @@ TINY = dict(image_size=56, patch_size=14, hidden_size=64, num_layers=2,
 TINY_DPT = dict(features=32, reassemble_channels=(16, 16, 32, 32), head_features=16)
 LR = 1e-4
 TOL = {"loss": 1e-5, "grad": 1e-4, "weight": 1e-2 * LR, "noise_weight": 2 * LR * (1 + 1e-3)}
+# chip_smoke.py's TRAIN_TOL for `small` at 4x518x518: gradients to 1e-3
+# of their max (float32 sums over a million pixels in other orders).
+SMALL_TOL = dict(TOL, grad=1e-3)
 
 
 @pytest.fixture(scope="module")
@@ -181,3 +191,85 @@ def test_tile_function_card_matches_cpu(mesh):
     assert torch.equal(shard.tile_sharded_disparity(mesh, cfg, halo=16)(l, r),
                        shard.tile_disparity(shard.tile_with_halo(l, 1, 0, 16),
                                             shard.tile_with_halo(r, 1, 0, 16), cfg, 16))
+
+
+def _small(seed=0):
+    """`small` (seeded, on the CPU) with the head's output bias at 2, a
+    4x518x518 batch (chip_smoke.py phase 3f's) and 2 images to predict."""
+    net = MonoDepthModel.create("small", seed=seed, image_size=518, device="cpu").net
+    with torch.no_grad():
+        net.head.head_out.bias.fill_(2.0)
+    rng = np.random.default_rng(0)
+    images = rng.uniform(0, 1, (4, 518, 518, 3)).astype(np.float32)
+    targets = rng.uniform(0.5, 2.0, (4, 518, 518)).astype(np.float32)
+    x = torch.rand(2, 518, 518, 3, generator=torch.Generator().manual_seed(1))
+    return net, images, targets, x
+
+
+def _tensor_parallel_rank(rank, world, store, work):
+    """One rank of test_tensor_parallel_over_four_gpus (torch.multiprocessing):
+    one step and predict_sharded at mesh (1, 1, 4), TF32 off; rank 0 saves
+    the gathered gradients and weights, every rank its replica check and
+    prediction."""
+    import torch.distributed as dist
+
+    from depthestimation_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    initialize_distributed(store, world, rank)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh((1, 1, world))
+    net, images, targets, x = _small()
+    local, opt, shardings = train.make_sharded_train_state(net, mesh, (518, 518), LR, seed=None)
+    out = {"heads": local.backbone.block_0.attn.num_heads,
+           "loss": float(train.make_train_step(local, opt, mesh, shardings)(images, targets))}
+    grads = train.gather_params({n: p.grad for n, p in local.named_parameters()}, mesh,
+                                shardings)
+    weights = train.gather_params({n: p.detach() for n, p in local.named_parameters()},
+                                  mesh, shardings)
+    replicated = torch.cat([p.detach().reshape(-1) for n, p in local.named_parameters()
+                            if shardings[n] is None])
+    first = replicated.clone()
+    dist.broadcast(first, src=0, group=mesh.get_group("model"))
+    out["replicas_equal"] = torch.equal(first, replicated)
+    del local, opt
+    model = MonoDepthModel(net=net.eval()).to_device(torch.device("cuda", rank))
+    out["pred"] = model.predict_sharded(x, mesh)
+    if rank == 0:
+        out["grads"] = {n: g.cpu() for n, g in grads.items()}
+        out["weights"] = {n: w.cpu() for n, w in weights.items()}
+    torch.save(out, f"{work}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def test_tensor_parallel_over_four_gpus(mesh, no_tf32, tmp_path):
+    """`small`'s 6 heads over 4 'model' ranks (JAX's contiguous layout:
+    qkv's output all-gathered, every head on every rank) against the
+    one-rank step and the single forward."""
+    import torch.multiprocessing as mp
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four GPUs")
+    mp.spawn(_tensor_parallel_rank, args=(4, f"file://{tmp_path}/rendezvous", str(tmp_path)),
+             nprocs=4, join=True)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(4)]
+
+    net, images, targets, x = _small()
+    local, opt, shardings = train.make_sharded_train_state(net, mesh, (518, 518), LR, seed=None)
+    loss = float(train.make_train_step(local, opt, mesh, shardings)(images, targets))
+    out = ranks[0]
+    assert all(r["heads"] == 6 and r["replicas_equal"] for r in ranks)
+    assert abs(out["loss"] - loss) <= SMALL_TOL["loss"] * abs(loss)
+    for name, p in local.named_parameters():
+        g = p.grad.cpu()
+        err = float((out["grads"][name] - g).abs().max() / g.abs().max())
+        assert err <= SMALL_TOL["grad"], (name, err)
+        diff = (out["weights"][name] - p.detach().cpu()).abs()
+        firm = g.abs() > SMALL_TOL["grad"] * g.abs().max()
+        assert not firm.any() or float(diff[firm].max()) <= SMALL_TOL["weight"], name
+        assert float(diff.max()) <= SMALL_TOL["noise_weight"], name
+    del local, opt
+    model = MonoDepthModel(net=net.eval()).to_device("cuda")
+    with torch.no_grad():
+        want = model.net(x.cuda()).cpu().numpy()
+    for r in ranks:
+        assert np.abs(r["pred"] - want).max() <= 1e-5 * np.abs(want).max()
