@@ -14,7 +14,9 @@ Phases (any failure exits non-zero and prints no result):
      variants (down, up, diagonals down, diagonals up, with the storage
      types of sgbm_3way, hh4 and hh), and the remap of both images of a
      pair through the mild rig's maps, beside torch's grid_sample as a
-     yardstick;
+     yardstick; above 256 disparities (WIDE_HOLDS: 64x400x272 and
+     24x1100x1024), K1 BT and census, K2 and K3's four passes through
+     their wide variants, bit exact;
   3. end to end through StereoDepthEstimator(device="cuda").estimate_
      depth(), each path driven with the wrapper call and kernel launch
      counts set to 0 just before and read just after; a pair must call
@@ -80,17 +82,23 @@ Phases (any failure exits non-zero and prints no result):
         seams and overall < 0.5 %); predict_sharded equal to the net's
         forward; with several GPUs, batch_pipeline and disp_sharded_sgm
         again with one process per GPU;
-     h. the user-facing surface: a synthetic 2964x1988 pair (ndisp 280)
-        written as PNG with its calib.txt (examples/example_stereo.py's
-        rig) and decoded back bit for bit; examples.stereo on it at
-        downscale 0.5 without calib.txt (994x1482, D = 144) and with it
-        (1988x2964, D = 144, the remap), each run with the counts set to 0
-        just before and read just after (exactly K1 1, K2 1 / 2, K3 1,
-        and remap 1 with calib.txt), its disparity equal bit for bit to
-        StereoDepthEstimator's on the decoded arrays, K1/K2/K3 and the
-        remap equal to their plain versions at that shape and timed, the
-        valid share, the MAE against the scene's ground truth and ms per
-        pair; examples.stereo_live on 60 synthetic frames at 0.7 (counts
+     h. the user-facing surface: a synthetic 2964x1988 pair (a scene of
+        ndisp 330, its nearest plane at 264 px) written as PNG with its
+        calib.txt (examples/example_stereo.py's rig, ndisp 280) and decoded
+        back bit for bit; examples.stereo on it at downscale 0.5 without
+        calib.txt (994x1482, D = 144) and with it (1988x2964, D = 144, the
+        remap), and at 1.0 without it (1988x2964, D = 288), each run with
+        the counts set to 0 just before and read just after (exactly K1 1,
+        K2 1 / 2, K3 1, as hscan_wide and rowsweep_wide at D = 288, and
+        remap 1 with calib.txt), its disparity equal bit for bit to
+        StereoDepthEstimator's on the decoded arrays, K1/K2/K3 (at D = 288
+        all four K3 passes) and the remap equal to their plain versions at
+        that shape and timed, the valid share, the MAE against the scene's
+        ground truth, ms per pair, first-call ms, the graph's pool bytes
+        and the peak of allocated memory; at D = 288 the raw valid share
+        where the truth is >= 256 px no more than LR_SHARE_GAP below the
+        share elsewhere (the LR check's key past 8 bits);
+        examples.stereo_live on 60 synthetic frames at 0.7 (counts
         60 x K1 1, K2 1 / 2, K3 1; frames 0-2 equal to the single-pair
         path); examples.mono (small, the committed demo PNG); the
         tools.profile_kernels stage table; tools.halo_sweep at 1080p, 8
@@ -114,12 +122,23 @@ Phases (any failure exits non-zero and prints no result):
         eager net (MONO_GRAPH_TOL), timed both ways. (Phase 3d's streams
         run on the graphs, each frame also held to the eager functions,
         and its frame splits give the eager frame beside the graphed one.)
+     j. above 256 disparities and the float32 route (phase_wide): hh4 and
+        hh at D = 288 through StereoDepthEstimator on a 240x720 pair moved
+        270 px, counts exactly the wide variants of the path (K3's up and
+        diagonal passes), the shift on >= 95 %, kernels == plain versions;
+        BT at block size 15 (past the int16 bounds) at 256x640x64 through
+        the facade's graph: a replay equal to the eager functions, one
+        float32_route call and no launch a pair, card == CPU, and
+        ValueError above 1 << 26 cells on the card;
   4. one JSON line {"kernels": [...]}: per kernel the wrapper calls and
      kernel launches counted in phase 3 in one pair of the path named, ms
      per call, its bound, the loss per pair, calls x (ms - bound_ms), its
      launches in phase 3g's batch_pipeline, and under "middlebury" its
      launches, ms, plain ms, bound and error in phase 3h at each shape;
+     then the wide variants of K2 and K3 with their numbers at 1988x2964x288
+     (phase 3h) and the launches of their path (3h, or 3j's hh4 and hh);
   5. one JSON line {"streams": {...}} with phase 3d's numbers, one JSON
+     line {"wide": {...}} with phase 3j's, one JSON
      line {"mono": {...}} with phase 3e's beside the card's name and power
      limit, one JSON line {"train": {...}, "parallel": {...}} with phases
      3f and 3g's, the card's name and power limit, one JSON line
@@ -336,19 +355,20 @@ def k3_passes(c, swe, cfg, cfg4, cfg8):
     """K3's four passes on the inputs each mode gives them, as
     {name: (acc, cfg, dxs, reverse, out_dtype)}: sgbm_3way's downward pass,
     hh4's upward pass, and hh's diagonal passes down and up (the storage
-    types of each mode)."""
+    types of each mode); named as their wrapper counts them (the wide
+    variants' names above 256 disparities)."""
     from depthestimation_torch.ops import cuda_sgm
 
     acc4, acc8 = cuda_sgm._acc_dtype(cfg4), cuda_sgm._acc_dtype(cfg8)
-    return {
-        "rowsweep": (swe, cfg, (0,), False, cuda_sgm._final_dtype(cfg)),
-        "rowsweep_up": (cuda_sgm.rowsweep(c, swe, cfg4, (0,), False, acc4),
-                        cfg4, (0,), True, cuda_sgm._final_dtype(cfg4)),
-        "rowsweep_diag": (swe, cfg8, (0, 1, -1), False, acc8),
-        "rowsweep_diag_up": (
-            cuda_sgm.rowsweep(c, swe, cfg8, (0, 1, -1), False, acc8),
-            cfg8, (0, -1, 1), True, cuda_sgm._final_dtype(cfg8)),
-    }
+    passes = [
+        (swe, cfg, (0,), False, cuda_sgm._final_dtype(cfg)),
+        (cuda_sgm.rowsweep(c, swe, cfg4, (0,), False, acc4),
+         cfg4, (0,), True, cuda_sgm._final_dtype(cfg4)),
+        (swe, cfg8, (0, 1, -1), False, acc8),
+        (cuda_sgm.rowsweep(c, swe, cfg8, (0, 1, -1), False, acc8),
+         cfg8, (0, -1, 1), True, cuda_sgm._final_dtype(cfg8)),
+    ]
+    return {cuda_sgm._rowsweep_name(p[2], p[3], c.shape[-1]): p for p in passes}
 
 
 # ---- 3d. streaming ----
@@ -1220,9 +1240,14 @@ def phase_parallel(mesh, cycles_per_ms, train_numbers):
 
 # ---- 3h. the user-facing surface ----
 # examples/example_stereo.py's rig (its CLI defaults): a Middlebury pair,
-# 2964x1988, 280 disparities, matched at downscale 0.5 with D = 144.
+# 2964x1988, 280 disparities, matched at downscale 0.5 with D = 144 and at
+# 1.0 with D = 288.
 MIDDLEBURY = dict(focal_px=3997.684, baseline_mm=193.001, doffs=131.111, width=2964,
                   height=1988, ndisp=280)
+# The synthetic scene's own range: its nearest plane at 0.8 * 330 = 264 px
+# (132 at 0.5), so that at 1.0 part of the truth lies at 256 or more,
+# where the LR check's key must hold d0 past 8 bits.
+SCENE_NDISP = 330
 SURFACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "surface")
 
 
@@ -1239,7 +1264,7 @@ def kernel_work(name, h, w, d, acc_bytes=2, out_bytes=2, dirs=1):
         return 2 * h * w * 4 * 4, 2 * h * w * 17
     if name.startswith("cost_volume"):
         return 2 * h * w * 4 + n * 2, n * (6 if name.endswith("census") else 14)
-    if name == "hscan":
+    if name.startswith("hscan"):
         return n * (2 + acc_bytes), n * 19
     return n * (2 + acc_bytes + out_bytes), n * 10 * dirs
 
@@ -1251,59 +1276,95 @@ def bound(nbytes, nops):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
+# The LR check above 256 disparities holds when the raw valid share where
+# the truth is >= 256 px is at most this far below the share elsewhere.
+LR_SHARE_GAP = 0.05
+
+
+def _lr_shares(est, truth):
+    """The LR check above 256 disparities on the example's own pair: the
+    share of valid raw disparities (the kernels' matcher, before the
+    postprocess fills holes) where the truth is 256 px or more, against
+    the share where it is below. With the JAX version's key (d0 & 255)
+    the first would be about 0."""
+    from depthestimation_torch.pipeline import raw_disparity
+
+    cfg = est.core.cfg
+    raw = raw_disparity(est.core.left_rectified, est.core.right_rectified, cfg)
+    valid = (raw[:, cfg.num_disp:] != cfg.min_disp - 1).cpu().numpy()
+    far = truth >= 256
+    shares = {"raw_valid_share_truth_ge_256": float(valid[far].mean()),
+              "raw_valid_share_truth_lt_256": float(valid[~far].mean()),
+              "truth_ge_256_share": float(far.mean())}
+    if not far.any() or (shares["raw_valid_share_truth_ge_256"]
+                         < shares["raw_valid_share_truth_lt_256"] - LR_SHARE_GAP):
+        raise AssertionError(f"3h LR check above 256 disparities: {shares}")
+    return shares
+
+
 def _middlebury_kernels(est, calibrated, errs_tag):
-    """K1, K2, K3 (sgbm_3way's downward pass) and, calibrated, the remap on
-    the example's own pair at its shape: each equal to its plain version
-    bit for bit, timed on the card (kernel and plain), with its bound.
-    Returns {kernel: numbers}."""
+    """K1, K2, K3 (sgbm_3way's downward pass; above 256 disparities all
+    four K3 passes, k3_passes) and, calibrated, the remap on the example's
+    own pair at its shape: each equal to its plain version bit for bit,
+    timed on the card (kernel and plain), with its bound. Drops the
+    example's graphs first, and the facade's (their pools are GBs; a
+    pipeline's reference cycles keep them until a collection). Returns
+    {kernel: numbers}."""
+    import dataclasses
+    import gc
+
     from depthestimation_torch.ops import color, cuda_sgm, remap
 
     core, cfg = est.core, est.core.cfg
+    core._graph_cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
     gl, gr = core.left_rectified, core.right_rectified
     h, w = gl.shape
     d = cfg.num_disp
-    final = cuda_sgm._final_dtype(cfg)
-    acc = cuda_sgm._acc_dtype(cfg)
     errs, out = {}, {}
-    c = cuda_sgm.cost_volume(gl, gr, cfg)
-    hold_exact(f"{errs_tag} cost_volume", c, cuda_sgm.cost_volume_plain(gl, gr, cfg), errs,
-               "3h")
-    swe = cuda_sgm.hscan(c, cfg)
-    hold_exact(f"{errs_tag} hscan", swe, cuda_sgm.hscan_plain(c, cfg), errs, "3h")
-    s = cuda_sgm.rowsweep(c, swe, cfg, (0,), False, final)
-    hold_exact(f"{errs_tag} rowsweep", s,
-               cuda_sgm.rowsweep_plain(c, swe, cfg, (0,), False, final), errs, "3h")
-    timed = {
-        "cost_volume": (lambda: cuda_sgm.cost_volume(gl, gr, cfg),
-                        lambda: cuda_sgm.cost_volume_plain(gl, gr, cfg), {}),
-        "hscan": (lambda: cuda_sgm.hscan(c, cfg), lambda: cuda_sgm.hscan_plain(c, cfg),
-                  dict(acc_bytes=acc.itemsize)),
-        "rowsweep": (lambda: cuda_sgm.rowsweep(c, swe, cfg, (0,), False, final),
-                     lambda: cuda_sgm.rowsweep_plain(c, swe, cfg, (0,), False, final),
-                     dict(acc_bytes=acc.itemsize, out_bytes=final.itemsize)),
-    }
-    if calibrated:
-        # The pair as prepare_rectified hands it to the remap: grayscale of
-        # the downscaled images, resized back to the calibration's size.
-        gray = torch.stack([color.resize_bilinear(color.to_grayscale(core._tensor(img)), (h, w))
-                            for img in (est.left_source, est.right_source)])
-        mx, my = core._rect_cache.device_maps(cfg.calib, cfg.baseline, 1.0, core.device)
-        rect = remap.remap_bilinear(gray, mx, my)
-        hold_exact(f"{errs_tag} remap", rect, remap.remap_bilinear_plain(gray, mx, my), errs,
-                   "3h")
-        if not (torch.equal(rect[0], gl) and torch.equal(rect[1], gr)):
-            raise AssertionError(f"{errs_tag}: the remap of the resized pair is not the "
-                                 "example's rectified pair")
-        timed["remap"] = (lambda: remap.remap_bilinear(gray, mx, my),
-                          lambda: remap.remap_bilinear_plain(gray, mx, my), {})
-    for name, (kern, plain, kw) in timed.items():
+
+    def hold_and_time(name, kern, plain, **kw):
+        """Hold kern() to plain() bit for bit, then time both, one at a
+        time (a plain version at 1988x2964x288 takes tens of GB). Returns
+        the kernel's output."""
+        got = kern()
+        hold_exact(f"{errs_tag} {name}", got, plain(), errs, "3h")
         ms_, plain_ms_ = time_ms(kern), time_ms(plain, runs=3)
         bound_ms, by = bound(*kernel_work(name, h, w, d, **kw))
         out[name] = {"shape": [h, w, d], "max_abs_err": errs[f"{errs_tag} {name}"],
                      "ms": ms_, "plain_ms": plain_ms_, "bound_ms": bound_ms, "bound_by": by}
         log(f"[3h] {errs_tag} {name}: {ms_:.4f} ms (bound {bound_ms:.4f}, {by}), "
             f"plain {plain_ms_:.2f} ms")
-    del c, swe, s
+        torch.cuda.empty_cache()
+        return got
+
+    c = hold_and_time("cost_volume", lambda: cuda_sgm.cost_volume(gl, gr, cfg),
+                      lambda: cuda_sgm.cost_volume_plain(gl, gr, cfg))
+    swe = hold_and_time(cuda_sgm._hscan_name(d), lambda: cuda_sgm.hscan(c, cfg),
+                        lambda: cuda_sgm.hscan_plain(c, cfg),
+                        acc_bytes=cuda_sgm._acc_dtype(cfg).itemsize)
+    if d > 256:
+        passes = k3_passes(c, swe, cfg, dataclasses.replace(cfg, sgbm_mode="hh4"),
+                           dataclasses.replace(cfg, sgbm_mode="hh"))
+    else:  # sgbm_3way's pass only
+        passes = {"rowsweep": (swe, cfg, (0,), False, cuda_sgm._final_dtype(cfg))}
+    for name, (a, kcfg, dxs, rev, dt) in passes.items():
+        hold_and_time(name, lambda: cuda_sgm.rowsweep(c, a, kcfg, dxs, rev, dt),
+                      lambda: cuda_sgm.rowsweep_plain(c, a, kcfg, dxs, rev, dt),
+                      acc_bytes=a.element_size(), out_bytes=dt.itemsize, dirs=len(dxs))
+    del c, swe, passes
+    if calibrated:
+        # The pair as prepare_rectified hands it to the remap: grayscale of
+        # the downscaled images, resized back to the calibration's size.
+        gray = torch.stack([color.resize_bilinear(color.to_grayscale(core._tensor(img)), (h, w))
+                            for img in (est.left_source, est.right_source)])
+        mx, my = core._rect_cache.device_maps(cfg.calib, cfg.baseline, 1.0, core.device)
+        rect = hold_and_time("remap", lambda: remap.remap_bilinear(gray, mx, my),
+                             lambda: remap.remap_bilinear_plain(gray, mx, my))
+        if not (torch.equal(rect[0], gl) and torch.equal(rect[1], gr)):
+            raise AssertionError(f"{errs_tag}: the remap of the resized pair is not the "
+                                 "example's rectified pair")
     torch.cuda.empty_cache()
     return out
 
@@ -1336,7 +1397,7 @@ def phase_surface(smi):
     paths = {name: os.path.join(SURFACE_DIR, name + ext)
              for name, ext in (("left", ".png"), ("right", ".png"), ("calib", ".txt"))}
     *written, gt = synthesize_stereo_pair(MIDDLEBURY["width"], MIDDLEBURY["height"],
-                                          MIDDLEBURY["ndisp"], seed=0)
+                                          SCENE_NDISP, seed=0)
     for side, img in zip(("left", "right"), written):
         png.write_png(paths[side], img)
     with open(paths["calib"], "w") as fh:
@@ -1352,38 +1413,45 @@ def phase_surface(smi):
         f"({result['write_s']:.2f} s with the scene) and decoded ({result['decode_s']:.2f} s): "
         "equal to the arrays written, bit for bit")
 
-    # -- examples.stereo at downscale 0.5, without and with calib.txt --
-    base = [paths["left"], paths["right"], "--downscale", "0.5", "--device", "cuda", "--no-viz"]
-    # D = 144: the configured 280 halved and rounded up to a multiple of 16.
-    h_full, w_full, d = MIDDLEBURY["height"], MIDDLEBURY["width"], -(-MIDDLEBURY["ndisp"] // 32) * 16
-    runs = {f"{h_full // 2}x{w_full // 2}x{d}": (["--ndisp", str(MIDDLEBURY["ndisp"])], False),
-            f"{h_full}x{w_full}x{d}": (["--calib", paths["calib"]], True)}
+    # -- examples.stereo at downscale 0.5 without and with calib.txt (D =
+    # 144: the configured 280 halved and rounded up to a multiple of 16),
+    # and at 1.0 without it (D = 288: K2 and K3's wide variants) --
+    h_full, w_full, ndisp = MIDDLEBURY["height"], MIDDLEBURY["width"], MIDDLEBURY["ndisp"]
+    half, full = -(-ndisp // 32) * 16, -(-ndisp // 16) * 16
+    runs = {f"{h_full // 2}x{w_full // 2}x{half}": (0.5, ["--ndisp", str(ndisp)], False),
+            f"{h_full}x{w_full}x{half}": (0.5, ["--calib", paths["calib"]], True),
+            f"{h_full}x{w_full}x{full}": (1.0, ["--ndisp", str(ndisp)], False)}
     result["stereo"] = {}
-    for tag, (extra, calibrated) in runs.items():
+    for tag, (factor, extra, calibrated) in runs.items():
+        torch.cuda.reset_peak_memory_stats()
         cuda_sgm.reset_launches()
         t0 = time.perf_counter()
-        est = stereo.run(base + extra)
+        est = stereo.run([paths["left"], paths["right"], "--downscale", str(factor),
+                          "--device", "cuda", "--no-viz", *extra])
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
         counts = counted()
-        expected = {"cost_volume": (1, 1), "hscan": (1, 2), "rowsweep": (1, 1)}
+        cfg = est.core.cfg
+        d = cfg.num_disp
+        expected = {"cost_volume": (1, 1), cuda_sgm._hscan_name(d): (1, 2),
+                    cuda_sgm._rowsweep_name((0,), False, d): (1, 1)}
         if calibrated:
             expected["remap"] = (1, 1)
         log(f"[3h] examples.stereo {tag}: (calls, launches) {counts}")
         if counts != expected:
             raise AssertionError(f"examples.stereo {tag} made {counts}, expected {expected}")
-        cfg = est.core.cfg
         h, w = est.core.left_rectified.shape
-        if f"{h}x{w}x{cfg.num_disp}" != tag:
-            raise AssertionError(f"examples.stereo {tag} matched at {h}x{w}x{cfg.num_disp}")
-        facade = StereoDepthEstimator(downscale_factor=0.5, device="cuda")
-        facade.left_source, facade.right_source = (_area_downscale_np(img, 0.5)
+        if f"{h}x{w}x{d}" != tag:
+            raise AssertionError(f"examples.stereo {tag} matched at {h}x{w}x{d}")
+        facade = StereoDepthEstimator(downscale_factor=factor, device="cuda")
+        facade.left_source, facade.right_source = (_area_downscale_np(img, factor)
                                                    for img in decoded)
         if calibrated:
             facade.configure_sgbm(**parse_calib_file(paths["calib"])["sgbm_kwargs"],
                                   sgbm_mode="sgbm_3way")
         else:
-            facade.configure_sgbm(num_disp=MIDDLEBURY["ndisp"], sgbm_mode="sgbm_3way",
+            facade.configure_sgbm(num_disp=ndisp, sgbm_mode="sgbm_3way",
                                   focal_length=MIDDLEBURY["focal_px"],
                                   baseline=MIDDLEBURY["baseline_mm"] / 1000.0,
                                   doffs=MIDDLEBURY["doffs"])
@@ -1392,22 +1460,29 @@ def phase_surface(smi):
                 and np.array_equal(depth, est.depth_map, equal_nan=True)):
             raise AssertionError(f"examples.stereo {tag} differs from the facade on the "
                                  "decoded arrays")
-        check_output(disp, depth, (h, w - cfg.num_disp), tag)
+        del facade
+        check_output(disp, depth, (h, w - d), tag)
         numbers = {"launches": {k: n for k, (_, n) in counts.items()},
                    "first_call_ms": first_ms, "ms_per_pair": host_ms(est.estimate_depth, runs=3),
+                   "pool_bytes": sum(e.pool_bytes for e in est.core._graph_cache.values()),
+                   "peak_allocated_bytes_first_call": peak,
                    "valid_share": float((disp > 0).mean())}
         if not calibrated:
-            # The ground truth at the matcher's scale: 2x2 means, halved.
-            g = gt.reshape(h, 2, w, 2).mean(axis=(1, 3)) * 0.5
+            # The ground truth at the matcher's scale: k x k means over k.
+            k = round(1 / factor)
+            g = (gt.reshape(h, k, w, k).mean(axis=(1, 3)) / k)[:, d:]
             ok = disp > 0
-            numbers["mae_px_vs_gt"] = float(np.abs(disp - g[:, cfg.num_disp:])[ok].mean())
+            numbers["mae_px_vs_gt"] = float(np.abs(disp - g)[ok].mean())
+            if d > 256:
+                numbers.update(_lr_shares(est, g))
         log(f"[3h] examples.stereo {tag} == the facade on the decoded arrays (bit for bit): "
             f"{numbers}")
         result["stereo"][tag] = numbers
         kernels[tag] = _middlebury_kernels(est, calibrated, tag)
         for name in kernels[tag]:
-            kernels[tag][name]["launches"] = numbers["launches"][name]
-        del est, facade
+            kernels[tag][name]["calls"], kernels[tag][name]["launches"] = counts.get(name,
+                                                                                  (0, 0))
+        del est
         torch.cuda.empty_cache()
 
     # -- examples.stereo_live: 60 synthetic frames at 0.7, no throttle --
@@ -1474,6 +1549,131 @@ def phase_surface(smi):
         f"passed: {result['dryrun_1']}" + (f"; dryrun({n_gpus}), one process per GPU, "
                                            "passed" if n_gpus > 1 else ""))
     return result, kernels
+
+
+# ---- 3j. above 256 disparities, and the float32 route ----
+# (h, w, D, shift) of phase 2's wide holds: a last chunk of 16 disparities
+# (272 = 256 + 16) and four whole chunks (1024).
+WIDE_HOLDS = ((64, 400, 272, 260), (24, 1100, 1024, 700))
+
+
+def wide_holds(errs):
+    """Phase 2 above 256 disparities: K1 (BT and census), K2 and K3's four
+    passes (k3_passes: sgbm_3way's, hh4's, hh's three-direction ones) equal
+    to their plain versions on integer texture pairs at WIDE_HOLDS, through
+    the wide variants of K2 and K3. Returns {kernel: {shape: max_abs_err}}."""
+    from depthestimation_torch import SGMConfig
+    from depthestimation_torch.ops import cuda_sgm
+
+    by_kernel = {}
+
+    def hold(tag, name, got, want):
+        hold_exact(f"{tag} {name}", got, want, errs)
+        by_kernel.setdefault(name, {})[tag] = errs[f"{tag} {name}"]
+
+    for h, w, d, shift in WIDE_HOLDS:
+        left, right = (torch.tensor(img[..., 0], dtype=torch.float32, device="cuda")
+                       for img in texture_pair(h, w, shift, seed=d))
+        cfg, cfgc = SGMConfig(num_disp=d), SGMConfig(num_disp=d, cost="census")
+        tag = f"{h}x{w}x{d}"
+        c = cuda_sgm.cost_volume(left, right, cfg)
+        hold(tag, "cost_volume", c, cuda_sgm.cost_volume_plain(left, right, cfg))
+        hold(tag, "cost_volume_census", cuda_sgm.cost_volume(left, right, cfgc),
+             cuda_sgm.cost_volume_plain(left, right, cfgc))
+        swe = cuda_sgm.hscan(c, cfg)
+        hold(tag, cuda_sgm._hscan_name(d), swe, cuda_sgm.hscan_plain(c, cfg))
+        passes = k3_passes(c, swe, cfg, SGMConfig(num_disp=d, sgbm_mode="hh4"),
+                           SGMConfig(num_disp=d, sgbm_mode="hh"))
+        for name, (acc, kcfg, dxs, rev, dt) in passes.items():
+            hold(tag, name, cuda_sgm.rowsweep(c, acc, kcfg, dxs, rev, dt),
+                 cuda_sgm.rowsweep_plain(c, acc, kcfg, dxs, rev, dt))
+    return by_kernel
+
+
+def phase_wide(counts_of):
+    """The hh4 and hh paths at D = 288 (examples.stereo's D at downscale
+    1.0) through StereoDepthEstimator on a 240x720 texture pair moved by
+    270 px, north-star flags: each pair launches exactly the wide variants
+    of its path, recovers the shift on >= 95 % of the pixels, and its raw
+    disparity equals the plain-composed one. Then the float32 route (BT at
+    block size 15, past the int16 bounds, D = 64 at 256x640): the facade's
+    first call captures its graph, a replay equals the eager functions bit
+    for bit and counts one float32_route call and no launch, raw_disparity
+    on the card equals the CPU's, and above 1 << 26 cells it raises
+    ValueError before anything runs. Returns the numbers to print."""
+    from depthestimation_torch import SGMConfig, StereoDepthEstimator
+    from depthestimation_torch import pipeline
+    from depthestimation_torch.ops import cuda_sgm
+
+    result = {}
+    d, shift = 288, 270
+    left_rgb, right_rgb = texture_pair(240, 720, shift, seed=5)
+    for path, mode, expected in (
+            ("j hh4 288", "hh4", {"cost_volume": (1, 1), "hscan_wide": (1, 2),
+                                  "rowsweep_wide": (1, 1), "rowsweep_wide_up": (1, 1)}),
+            ("j hh 288", "hh", {"cost_volume": (1, 1), "hscan_wide": (1, 2),
+                                "rowsweep_wide_diag": (1, 3), "rowsweep_wide_diag_up": (1, 3)})):
+        est = StereoDepthEstimator(device="cuda")
+        est.left_source, est.right_source = left_rgb, right_rgb
+        est.configure_sgbm(num_disp=d, focal_length=1000.0, baseline=0.1, sgbm_mode=mode,
+                           **NORTH_STAR)
+        est.core.fast_mode = True
+        disp, depth = drive(est, counts_of, path, expected)
+        check_output(disp, depth, (240, 720 - d), path)
+        hit = float((np.abs(disp - shift) <= 1.0).mean())
+        gl, gr = est.core.left_rectified, est.core.right_rectified
+        if hit < 0.95 or not torch.equal(
+                pipeline.raw_disparity(gl, gr, est.core.cfg),
+                pipeline.raw_disparity(gl, gr, est.core.cfg,
+                                       matcher=cuda_sgm.sgm_disparity_plain)):
+            raise AssertionError(f"{path}: shift on {hit:.4%}, or kernels != plain")
+        result[mode] = {"shift_hit": hit}
+        log(f"[3j] {path}: known {shift} px shift on {hit:.4%}; raw disparity: kernels == "
+            "plain versions on the card (exact)")
+        del est
+
+    kw = dict(num_disp=64, block_size=15)
+    left_rgb, right_rgb = texture_pair(256, 640, 9, seed=6)
+    est = StereoDepthEstimator(device="cuda")
+    est.left_source, est.right_source = left_rgb, right_rgb
+    est.configure_sgbm(focal_length=1000.0, baseline=0.1, **kw)
+    cfg = est.core.cfg
+    if cuda_sgm.kernels_supported(cfg, (256, 640)):
+        raise AssertionError(f"{kw} is inside the kernels' bounds")
+    cuda_sgm.reset_launches()
+    est.estimate_depth()  # eager once, captured, instantiated
+    torch.cuda.synchronize()
+    (entry,) = est.core._graph_cache.values()
+    cuda_sgm.reset_launches()
+    disp, depth = est.estimate_depth()  # a replay
+    torch.cuda.synchronize()
+    launches, calls = dict(cuda_sgm.LAUNCHES), dict(cuda_sgm.CALLS)
+    if any(launches.values()) or calls["float32_route"] != 1 or entry.replays < 1:
+        raise AssertionError(f"float32 route replay: launches {launches}, calls {calls}")
+    gl, gr = est.core.left_rectified, est.core.right_rectified
+    want = pipeline.stereo_depth_fn(gl, gr, cfg)
+    if not (np.array_equal(disp, want[0].cpu().numpy())
+            and np.array_equal(depth, want[1].cpu().numpy(), equal_nan=True)):
+        raise AssertionError("float32 route: the graph's replay differs from the eager pair")
+    raw = pipeline.raw_disparity(gl, gr, cfg)
+    if not torch.equal(raw.cpu(), pipeline.raw_disparity(gl.cpu(), gr.cpu(), cfg)):
+        raise AssertionError("float32 route: card raw disparity differs from the CPU's")
+    big = torch.zeros((1024, 1040), device="cuda")  # 1024 * 1040 * 64 > 1 << 26
+    try:
+        pipeline.raw_disparity(big, big, cfg)
+    except ValueError as e:
+        if "too large for the float32 matcher" not in str(e):
+            raise
+    else:
+        raise AssertionError("float32 route above 1 << 26 cells on the card did not raise")
+    result["float32_route"] = {"shape": [256, 640, 64], "block_size": 15,
+                               "valid_share": float((disp > 0).mean()),
+                               "first_call": _graph_numbers(entry),
+                               "ms_per_pair": host_ms(est.estimate_depth, runs=3)}
+    log(f"[3j] float32 route (BT block 15, 256x640x64): replay == eager (bit for bit), one "
+        "float32_route call and no launch a pair, card == CPU; 1024x1040x64 raised "
+        f"ValueError on the card; {result['float32_route']}")
+    return result
 
 
 # ---- 3i. the compiled-program caches as CUDA graphs ----
@@ -1799,6 +1999,7 @@ def main() -> int:
         k3_out[name] = cuda_sgm.rowsweep(c, acc, kcfg, dxs, rev, dt)
         hold_exact(name, k3_out[name],
                    cuda_sgm.rowsweep_plain(c, acc, kcfg, dxs, rev, dt), errs)
+    wide_errs = wide_holds(errs)
     torch.cuda.synchronize()
 
     timed = {
@@ -2002,6 +2203,9 @@ def main() -> int:
     # ---- 3h. examples, tools and entry points on the card ----
     surface_numbers, middlebury = phase_surface(smi)
 
+    # ---- 3j. the wide variants' paths and the float32 route ----
+    wide_numbers = phase_wide(counts_of)
+
     # ---- 3i. the CUDA graphs against the eager functions ----
     graph_numbers = phase_graphs((left_rgb, right_rgb), (raw_l, raw_r), counts_of,
                                  cycles_per_ms, smi)
@@ -2049,9 +2253,33 @@ def main() -> int:
         # shape, ms, plain ms, bound and error at that shape.
         row["middlebury"] = {tag: by_name[name] for tag, by_name in middlebury.items()
                              if name in by_name}
+        row["max_abs_err_wide"] = wide_errs.get(name, {})
+        kernels.append(row)
+    # K2 and K3's wide variants, their numbers from examples.stereo's
+    # 1988x2964x288 run in phase 3h (ms, plain ms, bound, error at that
+    # shape; K2 and K3's downward pass are that run's, counted in it), the
+    # other passes' calls and launches from phase 3j's hh4 and hh paths.
+    full = middlebury[f"{MIDDLEBURY['height']}x{MIDDLEBURY['width']}x288"]
+    for name, path in (("hscan_wide", None), ("rowsweep_wide", None),
+                       ("rowsweep_wide_up", "j hh4 288"), ("rowsweep_wide_diag", "j hh 288"),
+                       ("rowsweep_wide_diag_up", "j hh 288")):
+        at = full[name]
+        calls, launches = ((at["calls"], at["launches"]) if path is None
+                           else counts_of[path].get(name, (0, 0)))
+        row = {"name": name, "route": "cuda", "source": sgm_src,
+               "replaces": "depthestimation_tpu/ops/pallas_sgm.py:"
+                           + ("501" if name.startswith("hscan") else "595"),
+               "path": "middlebury_288" if path is None else path.split()[1] + "_288",
+               "calls": calls, "launches": launches,
+               "max_abs_err": at["max_abs_err"], "exact": at["max_abs_err"] == 0,
+               "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+               "bound_by": at["bound_by"], "library_ms": None, "shape": at["shape"],
+               "max_abs_err_wide": wide_errs[name]}
+        row["loss_ms"] = calls * (row["ms"] - row["bound_ms"])
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"streams": streams, "stages": split}))
+    print(json.dumps({"wide": wide_numbers}))
     print(json.dumps({"mono": mono_numbers}))
     print(json.dumps({"train": train_numbers, "parallel": parallel_numbers}))
     print(json.dumps({"surface": surface_numbers}))

@@ -657,6 +657,164 @@ rowsweep_kernel(const int16_t* __restrict__ cost, const InT* __restrict__ acc,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K2 and K3 for D above 256 ("wide"; dispatched by ops/cuda_sgm.py): the
+// same scans, lines and outputs as hscan_kernel and rowsweep_kernel, for
+// any D that is a multiple of 16.
+//
+// The kernels above keep a line's whole carry in registers, K <= 8
+// disparities a lane, so one warp holds at most 256. Here one warp still
+// owns one line, but walks D in chunks of 256 (lane l takes disparities
+// [j*256 + 8l, j*256 + 8l + 8) of chunk j), so the carry L' lives in a
+// scratch row of the line in device memory (2 * (D + 16) int32: the
+// previous step's L' and this step's L, a few KB a line, which stay in
+// L2). Each buffer has kWidePad kBig cells on both sides, so the d-1 and
+// d+1 neighbours past either end read kBig, as lanes past D do above; the
+// neighbours across lanes and chunks are plain reads of L'. min over D of
+// L' is the running min of the previous step's writes, one warp reduction
+// a step, and a __syncwarp orders the step's writes before the next
+// step's reads. C and the other operands are read straight from the
+// volume with 16-byte loads (no ring), so a step waits for its loads: a
+// simple form, timed in PERF.md.
+//
+// Bound: bytes, as K2 and K3 above (the scratch rows stay in L2).
+// ---------------------------------------------------------------------------
+
+constexpr int kWideK = 8;                  // disparities of a lane a chunk
+constexpr int kWideChunk = 32 * kWideK;    // disparities of a warp a chunk
+constexpr int kWidePad = 8;                // kBig cells on each side of L'
+
+// int32 cells of one carry buffer; a line's scratch row holds two.
+__host__ __device__ constexpr int wide_cells(int D) {
+  return D + 2 * kWidePad;
+}
+
+// Both carry buffers of a line: kBig pads around a zero L' (a fresh path).
+__device__ __forceinline__ void wide_init(int* row, int D, int lane) {
+  const int n = wide_cells(D);
+  for (int i = lane; i < 2 * n; i += 32) {
+    const int j = i % n;
+    row[i] = (j < kWidePad || j >= kWidePad + D) ? kBig : 0;
+  }
+  __syncwarp();
+}
+
+// The recurrence of sgm_step on the run [d0, d0 + 8): L' and its two
+// outer neighbours from prev (padded), C from c, the new L into l.
+__device__ __forceinline__ void wide_run(const int* prev, int d0,
+                                         const int (&c)[kWideK], int m,
+                                         int p1, int p2, int (&l)[kWideK]) {
+  const int* const q = prev + kWidePad + d0;
+  int lp[kWideK + 2];  // lp[k + 1] = L'(d0 + k), k = -1 .. 8
+  const int4 v0 = *reinterpret_cast<const int4*>(q);
+  const int4 v1 = *reinterpret_cast<const int4*>(q + 4);
+  lp[0] = q[-1];
+  lp[1] = v0.x; lp[2] = v0.y; lp[3] = v0.z; lp[4] = v0.w;
+  lp[5] = v1.x; lp[6] = v1.y; lp[7] = v1.z; lp[8] = v1.w;
+  lp[9] = q[kWideK];
+#pragma unroll
+  for (int k = 0; k < kWideK; ++k) {
+    const int best = min(min(lp[k + 1], min(lp[k], lp[k + 2]) + p1), m + p2);
+    l[k] = c[k] + best - m;
+  }
+}
+
+// Writes the run's new L into next (padded) and returns its min.
+__device__ __forceinline__ int wide_keep(int* next, int d0,
+                                         const int (&l)[kWideK]) {
+  int* const q = next + kWidePad + d0;
+  *reinterpret_cast<int4*>(q) = make_int4(l[0], l[1], l[2], l[3]);
+  *reinterpret_cast<int4*>(q + 4) = make_int4(l[4], l[5], l[6], l[7]);
+  int m = l[0];
+#pragma unroll
+  for (int k = 1; k < kWideK; ++k) m = min(m, l[k]);
+  return m;
+}
+
+// K2, wide: forward stores L (int16), backward stores L_lr + L in OutT.
+template <bool BACKWARD, typename OutT>
+__global__ void __launch_bounds__(32 * kScanWarps)
+hscan_wide_kernel(const int16_t* __restrict__ cost,
+                  const int16_t* __restrict__ lin, OutT* __restrict__ out,
+                  int* __restrict__ scratch, int h, int w, int D, int p1,
+                  int p2) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kScanWarps + warp;
+  if (row >= h) return;  // warp-uniform; the kernel has no block barrier
+  int* const carry = scratch + (size_t)row * 2 * wide_cells(D);
+  wide_init(carry, D, lane);
+  const size_t base = (size_t)row * w * D;
+  int m = 0;  // min over D of L' (zero before the first step)
+  for (int i = 0; i < w; ++i) {
+    const int x = BACKWARD ? w - 1 - i : i;
+    const int* const prev = carry + (i & 1) * wide_cells(D);
+    int* const next = carry + ((i + 1) & 1) * wide_cells(D);
+    const size_t p = base + (size_t)x * D;
+    int mn = kBig;
+    for (int d0 = lane * kWideK; d0 < D; d0 += kWideChunk) {
+      int c[kWideK], l[kWideK];
+      load_vec<kWideK>(cost + p + d0, c);
+      wide_run(prev, d0, c, m, p1, p2, l);
+      mn = min(mn, wide_keep(next, d0, l));
+      if (BACKWARD) {
+        int a[kWideK], s[kWideK];
+        load_vec<kWideK>(lin + p + d0, a);
+#pragma unroll
+        for (int k = 0; k < kWideK; ++k) s[k] = a[k] + l[k];
+        store_vec<kWideK>(out + p + d0, s);
+      } else {
+        store_vec<kWideK>(out + p + d0, l);
+      }
+    }
+    m = __reduce_min_sync(kFull, mn);
+    __syncwarp();  // this step's L is written before the next step reads it
+  }
+}
+
+// K3, wide: out = acc + L_(dy, dx) along every line, as rowsweep_kernel.
+template <typename InT, typename OutT>
+__global__ void __launch_bounds__(32 * kScanWarps)
+rowsweep_wide_kernel(const int16_t* __restrict__ cost,
+                     const InT* __restrict__ acc, OutT* __restrict__ out,
+                     int* __restrict__ scratch, int h, int w, int D, int dy,
+                     int dx, int p1, int p2) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int line = blockIdx.x * kScanWarps + warp;
+  if (line >= (dx == 0 ? w : w + h - 1)) return;  // warp-uniform
+  // The line's first pixel and pixel count, as in rowsweep_kernel.
+  const bool from_col = line >= w;
+  const int e = line - w + 1;
+  const int y = from_col ? (dy > 0 ? e : h - 1 - e) : (dy > 0 ? 0 : h - 1);
+  const int x = from_col ? (dx > 0 ? 0 : w - 1) : line;
+  const int rows_left = dy > 0 ? h - y : y + 1;
+  const int cols_left = dx > 0 ? w - x : (dx < 0 ? x + 1 : rows_left);
+  const int n = min(rows_left, cols_left);
+  const ptrdiff_t step = ((ptrdiff_t)dy * w + dx) * D;
+  const ptrdiff_t p0 = ((ptrdiff_t)y * w + x) * D;
+
+  int* const carry = scratch + (size_t)line * 2 * wide_cells(D);
+  wide_init(carry, D, lane);
+  int m = 0;
+  for (int s = 0; s < n; ++s) {
+    const int* const prev = carry + (s & 1) * wide_cells(D);
+    int* const next = carry + ((s + 1) & 1) * wide_cells(D);
+    const ptrdiff_t p = p0 + (ptrdiff_t)s * step;
+    int mn = kBig;
+    for (int d0 = lane * kWideK; d0 < D; d0 += kWideChunk) {
+      int c[kWideK], a[kWideK], l[kWideK], o[kWideK];
+      load_vec<kWideK>(cost + p + d0, c);
+      load_vec<kWideK>(acc + p + d0, a);
+      wide_run(prev, d0, c, m, p1, p2, l);
+      mn = min(mn, wide_keep(next, d0, l));
+#pragma unroll
+      for (int k = 0; k < kWideK; ++k) o[k] = a[k] + l[k];
+      store_vec<kWideK>(out + p + d0, o);
+    }
+    m = __reduce_min_sync(kFull, mn);
+    __syncwarp();  // this step's L is written before the next step reads it
+  }
+}
+
 // Per-lane disparity count K for D (a multiple of 16, at most 256).
 int lanes_k(int D) {
   if (D % 16 != 0) return 0;
@@ -731,6 +889,40 @@ int rowsweep_launch(const int16_t* cost, const void* acc, int acc_int32,
                                         dy, dx, p1, p2, stream);
 }
 
+// The wide scans take D a multiple of 16 (any size) and a scratch of
+// lines * 2 * wide_cells(D) int32, 16-byte aligned, that they overwrite.
+int hscan_wide_launch(const int16_t* cost, const int16_t* lin, void* out,
+                      int out_int32, int backward, int h, int w, int D,
+                      int p1, int p2, int* scratch, cudaStream_t stream) {
+  if (!backward)
+    return scan_launch(&hscan_wide_kernel<false, int16_t>, h, 0, stream, cost,
+                       lin, static_cast<int16_t*>(out), scratch, h, w, D, p1,
+                       p2);
+  if (out_int32)
+    return scan_launch(&hscan_wide_kernel<true, int32_t>, h, 0, stream, cost,
+                       lin, static_cast<int32_t*>(out), scratch, h, w, D, p1,
+                       p2);
+  return scan_launch(&hscan_wide_kernel<true, int16_t>, h, 0, stream, cost,
+                     lin, static_cast<int16_t*>(out), scratch, h, w, D, p1,
+                     p2);
+}
+
+template <typename InT>
+int rowsweep_wide_launch_in(const int16_t* cost, const void* acc, void* out,
+                            int out_int32, int h, int w, int D, int dy,
+                            int dx, int p1, int p2, int* scratch,
+                            cudaStream_t stream) {
+  const int lines = dx == 0 ? w : w + h - 1;
+  const InT* a = static_cast<const InT*>(acc);
+  if (out_int32)
+    return scan_launch(&rowsweep_wide_kernel<InT, int32_t>, lines, 0, stream,
+                       cost, a, static_cast<int32_t*>(out), scratch, h, w, D,
+                       dy, dx, p1, p2);
+  return scan_launch(&rowsweep_wide_kernel<InT, int16_t>, lines, 0, stream,
+                     cost, a, static_cast<int16_t*>(out), scratch, h, w, D,
+                     dy, dx, p1, p2);
+}
+
 template <int BS, bool CENSUS>
 int cost_volume_launch(const float* left, const float* right, int16_t* out,
                        int h, int w, int D, int min_disp, int cap,
@@ -754,13 +946,14 @@ int cost_volume_launch(const float* left, const float* right, int16_t* out,
   return (int)cudaGetLastError();
 }
 
-// Takes D a multiple of 16 up to 256, min_disp >= 0, an odd block_size up
-// to 17 (the largest kernels_supported admits) and a 16-byte aligned out.
+// Takes D a multiple of 16 (64 a block on grid.z, so up to 65535 * 64),
+// min_disp >= 0, an odd block_size up to 17 (the largest kernels_supported
+// admits) and a 16-byte aligned out.
 template <bool CENSUS>
 int cost_volume_dispatch(const float* left, const float* right, int16_t* out,
                          int h, int w, int D, int min_disp, int bs, int cap,
                          cudaStream_t stream) {
-  if (h < 1 || w < 1 || D < 16 || D > 256 || D % 16 != 0 || min_disp < 0 ||
+  if (h < 1 || w < 1 || D < 16 || D % 16 != 0 || min_disp < 0 ||
       reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   switch (bs) {
@@ -822,6 +1015,32 @@ int sgm_rowsweep(const int16_t* cost, const void* acc, int acc_int32,
     case 8: return rowsweep_launch<8>(cost, acc, acc_int32, out, out_int32, h, w, D, dy, dx, p1, p2, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+int sgm_hscan_wide(const int16_t* cost, const int16_t* lin, void* out,
+                   int out_int32, int backward, int h, int w, int D, int p1,
+                   int p2, int* scratch, cudaStream_t stream) {
+  if (D < 16 || D % 16 != 0 || !aligned16(cost) || !aligned16(out) ||
+      !aligned16(scratch) || (backward && !aligned16(lin)))
+    return (int)cudaErrorInvalidValue;
+  return hscan_wide_launch(cost, lin, out, out_int32, backward, h, w, D, p1,
+                           p2, scratch, stream);
+}
+
+int sgm_rowsweep_wide(const int16_t* cost, const void* acc, int acc_int32,
+                      void* out, int out_int32, int h, int w, int D, int dy,
+                      int dx, int p1, int p2, int* scratch,
+                      cudaStream_t stream) {
+  if ((dy != 1 && dy != -1) || dx < -1 || dx > 1 || D < 16 || D % 16 != 0 ||
+      !aligned16(cost) || !aligned16(acc) || !aligned16(out) ||
+      !aligned16(scratch))
+    return (int)cudaErrorInvalidValue;
+  if (acc_int32)
+    return rowsweep_wide_launch_in<int32_t>(cost, acc, out, out_int32, h, w,
+                                            D, dy, dx, p1, p2, scratch,
+                                            stream);
+  return rowsweep_wide_launch_in<int16_t>(cost, acc, out, out_int32, h, w, D,
+                                          dy, dx, p1, p2, scratch, stream);
 }
 
 }  // extern "C"

@@ -46,16 +46,22 @@ _SIGNATURES = {
     "sgm_census_cost_volume": [_P] * 3 + [_I] * 5 + [_P],
     "sgm_hscan": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "sgm_rowsweep": [_P, _P, _I, _P, _I] + [_I] * 7 + [_P],
+    "sgm_hscan_wide": [_P, _P, _P] + [_I] * 7 + [_P, _P],
+    "sgm_rowsweep_wide": [_P, _P, _I, _P, _I] + [_I] * 7 + [_P, _P],
     "remap_bilinear": [_P] * 4 + [_I] * 3 + [_P],
 }
 
-# Launch counts per kernel (K3 by direction set; see cuda_sgm.rowsweep).
+# Launch counts per kernel (K3 by direction set, K2 and K3 above 256
+# disparities as their wide variants; see cuda_sgm.hscan and rowsweep).
 LAUNCHES = {name: 0 for name in (
     "cost_volume", "cost_volume_census", "hscan", "rowsweep", "rowsweep_up",
-    "rowsweep_diag", "rowsweep_diag_up", "remap")}
+    "rowsweep_diag", "rowsweep_diag_up", "hscan_wide", "rowsweep_wide",
+    "rowsweep_wide_up", "rowsweep_wide_diag", "rowsweep_wide_diag_up", "remap")}
 # Wrapper calls on the card per kernel, under the same names (a call of
-# hscan makes 2 launches, a three-direction rowsweep pass 3).
-CALLS = dict.fromkeys(LAUNCHES, 0)
+# hscan makes 2 launches, a three-direction rowsweep pass 3), and the
+# calls of the matcher's float32 route on any device
+# (pipeline.float32_disparity, which launches no kernel of its own).
+CALLS = dict.fromkeys((*LAUNCHES, "float32_route"), 0)
 
 _lib = None
 
@@ -134,9 +140,9 @@ def load_library() -> ctypes.CDLL:
 
 def reset_launches() -> None:
     """Set every launch and call count to 0."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-        CALLS[name] = 0
+    for counts_ in (LAUNCHES, CALLS):
+        for name in counts_:
+            counts_[name] = 0
 
 
 def counts():

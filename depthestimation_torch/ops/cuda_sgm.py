@@ -12,7 +12,12 @@ Counterpart of depthestimation_tpu/ops/pallas_sgm.py. The three kernels
 
 followed by the WTA tail (ops/wta.py, plain torch). All four modes
 compose these as the TPU matcher does (pallas_sgm.py:739-755); shapes
-past the int16 bounds raise NotImplementedError (check_supported).
+past the int16 bounds raise NotImplementedError (check_supported), and
+pipeline.raw_disparity sends them down the float32 route instead, as the
+JAX package does. Above 256 disparities K2 and K3 launch their wide
+variants (one warp a line walking D in chunks of 256, the carry in a
+scratch row), counted under their own names (hscan_wide,
+rowsweep_wide[_diag][_up]); K1 tiles D on its grid at any size.
 
 Each wrapper takes a tensor on the CPU through its plain version (the
 same function in plain torch ops) and launches its kernel for a tensor on
@@ -41,8 +46,9 @@ __all__ = [
     "rowsweep_plain", "sgm_disparity", "sgm_disparity_plain",
 ]
 
-# K2/K3 give each of a warp's 32 lanes at most 8 disparities.
-_MAX_DISP = 256
+# K2/K3 give each of a warp's 32 lanes at most 8 disparities; above this
+# they launch their wide variants.
+_NARROW_DISP = 256
 
 # The row sweeps of each path count, as (dxs, reverse) per K3 pass
 # (pallas_sgm.py:741-755): downward vertical, then for 4 paths upward
@@ -98,15 +104,13 @@ def _final_dtype(cfg) -> torch.dtype:
 def kernels_supported(cfg, shape) -> bool:
     """True when the kernels' storage types and launch shapes hold cfg at
     an (h, w) image: the conditions of pallas_sgm.pallas_supported (its
-    pad-lane cost is below _ldir_bound) plus num_disp <= 256."""
+    pad-lane cost is below _ldir_bound), at any num_disp."""
     if cfg.cost not in ("bt", "census"):
         return False
     if _ldir_bound(cfg) >= 32600:
         return False
     h, w = shape
-    if w <= cfg.num_disp + cfg.min_disp or h < cfg.block_size:
-        return False
-    return cfg.num_disp <= _MAX_DISP
+    return w > cfg.num_disp + cfg.min_disp and h >= cfg.block_size
 
 
 def check_supported(cfg, shape) -> None:
@@ -168,6 +172,22 @@ def hscan_plain(cost, cfg) -> torch.Tensor:
     return sgm.aggregate(cost, cfg.p1, cfg.p2, 2).to(_acc_dtype(cfg))
 
 
+def _wide(d) -> bool:
+    """K2 and K3 launch their wide variants above 256 disparities."""
+    return d > _NARROW_DISP
+
+
+def _scratch(lines, d, device) -> torch.Tensor:
+    """A wide scan's carry rows: 2 * (d + 16) int32 a line (the kernels'
+    wide_cells), overwritten by the launch."""
+    return torch.empty(lines * 2 * (d + 16), dtype=torch.int32, device=device)
+
+
+def _hscan_name(d) -> str:
+    """LAUNCHES key of K2: hscan, or hscan_wide above 256 disparities."""
+    return "hscan_wide" if _wide(d) else "hscan"
+
+
 def hscan(cost: torch.Tensor, cfg) -> torch.Tensor:
     """K2: int16 C (H, W, D) -> S_we = L_lr + L_rl. Two launches: the
     L->R scan stores L (int16), the R->L scan adds it."""
@@ -179,25 +199,30 @@ def hscan(cost: torch.Tensor, cfg) -> torch.Tensor:
     hscan_launch(cost, None, l_lr, cfg)
     out = torch.empty((h, w, d), dtype=_acc_dtype(cfg), device=cost.device)
     hscan_launch(cost, l_lr, out, cfg)
-    _called("hscan")
+    _called(_hscan_name(d))
     return out
 
 
 def hscan_launch(cost: torch.Tensor, l_lr, out: torch.Tensor, cfg) -> None:
     """One of K2's two launches, on card tensors: with l_lr None the L->R
     scan of int16 cost into out (int16); else the R->L scan, added to l_lr
-    and stored in out (int16 or int32)."""
+    and stored in out (int16 or int32). The wide variant above 256
+    disparities."""
     h, w, d = cost.shape
-    _launched("hscan", load_library().sgm_hscan(
-        cost.data_ptr(), None if l_lr is None else l_lr.data_ptr(), out.data_ptr(),
-        int(out.dtype == torch.int32), int(l_lr is not None), h, w, d,
-        cfg.p1, cfg.p2, _stream(),
-    ))
+    args = (cost.data_ptr(), None if l_lr is None else l_lr.data_ptr(), out.data_ptr(),
+            int(out.dtype == torch.int32), int(l_lr is not None), h, w, d, cfg.p1, cfg.p2)
+    lib = load_library()
+    if _wide(d):
+        err = lib.sgm_hscan_wide(*args, _scratch(h, d, cost.device).data_ptr(), _stream())
+    else:
+        err = lib.sgm_hscan(*args, _stream())
+    _launched(_hscan_name(d), err)
 
 
-def _rowsweep_name(dxs, reverse) -> str:
-    """LAUNCHES key of a K3 pass: rowsweep[_diag][_up]."""
-    return ("rowsweep" + ("_diag" if any(dxs) else "")
+def _rowsweep_name(dxs, reverse, d) -> str:
+    """LAUNCHES key of a K3 pass: rowsweep[_wide][_diag][_up], _wide above
+    256 disparities."""
+    return ("rowsweep" + ("_wide" if _wide(d) else "") + ("_diag" if any(dxs) else "")
             + ("_up" if reverse else ""))
 
 
@@ -238,14 +263,19 @@ def rowsweep(cost: torch.Tensor, acc: torch.Tensor, cfg, dxs, reverse: bool,
         raise TypeError(f"out_dtype {out_dtype} is not int16 or int32")
     if not dxs or any(dx not in (-1, 0, 1) for dx in dxs):
         raise ValueError(f"dxs must be a non-empty list of -1, 0, 1: {dxs}")
-    name = _rowsweep_name(dxs, reverse)
+    name = _rowsweep_name(dxs, reverse, d)
     for dx in dxs:
         out = torch.empty((h, w, d), dtype=out_dtype, device=cost.device)
-        _launched(name, lib.sgm_rowsweep(
-            cost.data_ptr(), acc.data_ptr(), int(acc.dtype == torch.int32),
-            out.data_ptr(), int(out_dtype == torch.int32), h, w, d,
-            -1 if reverse else 1, dx, cfg.p1, cfg.p2, _stream(),
-        ))
+        args = (cost.data_ptr(), acc.data_ptr(), int(acc.dtype == torch.int32),
+                out.data_ptr(), int(out_dtype == torch.int32), h, w, d,
+                -1 if reverse else 1, dx, cfg.p1, cfg.p2)
+        if _wide(d):
+            lines = w if dx == 0 else w + h - 1
+            err = lib.sgm_rowsweep_wide(*args, _scratch(lines, d, cost.device).data_ptr(),
+                                        _stream())
+        else:
+            err = lib.sgm_rowsweep(*args, _stream())
+        _launched(name, err)
         acc = out
     _called(name)
     return acc

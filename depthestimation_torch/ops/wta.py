@@ -13,7 +13,10 @@ cv2.StereoSGBM, reference stereo_core.py:63-75):
   is a min-cost claim of the chosen (minS, d0) pairs onto right pixels
   xr = x - d0 (uniqueness survivors only), then pixels with
   |d_R(x - d0) - d0| > disp12_max_diff are invalidated (negative
-  disables);
+  disables). Above 256 disparities this differs from the JAX version on
+  purpose: its claim key cost*256 + d0 decodes d0 with & 255, so there it
+  invalidates every pixel whose d0 is 256 or more; the key here is
+  cost << shift | d0 with the argmin's shift;
 - invalid marker = min_disp - 1.
 
 The volume here is never padded, so the JAX version's num_disp/crop
@@ -38,24 +41,35 @@ def lr_invalidate(d0, min_s, valid, disp12_max_diff, min_disp, num_disp):
 
     The claimants of right pixel xr are x = xr + d + min_disp for d in
     [0, D), so the scatter-min becomes a shift loop over d on a packed key
-    cost*256 + d0, which orders by (cost, d): ascending d with a strict '<'
-    update, OpenCV's tie-break (d0 < 256 always).
+    cost << shift | d0, which orders by (cost, d): ascending d with a
+    strict '<' update, OpenCV's tie-break. shift is wta_disparity's,
+    max(8, bits of D - 1), so d0 always fits below it.
+
+    Up to 256 disparities the key is the JAX version's int32 cost*256 + d0
+    (bit for bit): the kernels' largest final sum, 8 paths of at most
+    32600, times 256 stays below noclaim = 2^29. Above 256 the key is
+    int64, with noclaim = 2^61: a real key is below 2^(31 + shift), so it
+    stays under noclaim up to shift 30, i.e. past any D a card can hold.
     """
     h, w = d0.shape
     dev = d0.device
     pad_r = num_disp + min_disp
-    noclaim = 1 << 29
-    key = torch.where(valid, min_s * 256 + d0, noclaim).to(torch.int32)
+    shift = max(8, (num_disp - 1).bit_length())
+    dtype = torch.int32 if shift == 8 else torch.int64
+    noclaim = 1 << (29 if shift == 8 else 61)
+    none = 2 * noclaim  # "no candidate", above noclaim
+    low = (1 << shift) - 1
+    key = torch.where(valid, min_s.to(dtype) * (1 << shift) + d0, noclaim).to(dtype)
     key_pad = torch.cat(
-        [key, torch.full((h, pad_r), noclaim, dtype=torch.int32, device=dev)], 1
+        [key, torch.full((h, pad_r), noclaim, dtype=dtype, device=dev)], 1
     )
-    packed2 = torch.full((h, w), 1 << 30, dtype=torch.int32, device=dev)
+    packed2 = torch.full((h, w), none, dtype=dtype, device=dev)
     for d in range(num_disp):
         off = d + min_disp
         cand = key_pad[:, off:off + w]
-        cand = torch.where((cand & 255) == d, cand, 1 << 30)
+        cand = torch.where((cand & low) == d, cand, none)
         packed2 = torch.minimum(packed2, cand)
-    disp2 = torch.where(packed2 >= noclaim, _BIG, packed2 & 255)
+    disp2 = torch.where(packed2 >= noclaim, _BIG, packed2 & low).to(torch.int32)
 
     # Check phase: pixel x with index d reads disp2[x - d - min_disp]
     # (left pad = out of bounds = bad).

@@ -14,7 +14,9 @@ the card an entry is a CUDA graph of the eager function, captured on its
 first call and replayed on every later one (graphs.py); on the CPU it is
 the eager function itself. The matcher and the rectification remap are
 CUDA kernels on the card and their plain versions on the CPU
-(ops/cuda_sgm.py, ops/remap.py).
+(ops/cuda_sgm.py, ops/remap.py). A config and shape outside the kernels'
+int16 bounds or launch shapes takes the float32 route instead, as the JAX
+package takes its XLA route outside Pallas (float32_disparity).
 """
 
 from __future__ import annotations
@@ -28,10 +30,18 @@ import torch
 from .calib import RectificationCache
 from .config import SGMConfig
 from .graphs import CapturedCall
-from .ops import color, costs, cuda_sgm, depth as depth_ops, filters, remap, sgm, wls
+from .ops import color, costs, cuda_sgm, depth as depth_ops, filters, remap, sgm, wls, wta
+from .ops.cuda_build import called as _called
 
-__all__ = ["StereoPipeline", "compute_disparity_volume", "raw_disparity",
-           "postprocess_and_depth", "stereo_depth_fn"]
+__all__ = ["StereoPipeline", "compute_disparity_volume", "float32_disparity",
+           "check_float32_route", "raw_disparity", "postprocess_and_depth",
+           "stereo_depth_fn"]
+
+# Largest H * W * num_disp cost volume the float32 route may build on the
+# card: the JAX package's limit for its XLA route on the TPU
+# (_XLA_FALLBACK_LIMIT, depthestimation_tpu/pipeline.py:40). The route
+# holds several float32 volumes and scans plane by plane in torch ops.
+_FLOAT32_ROUTE_LIMIT = 1 << 26
 
 
 def _resolve_device(device) -> torch.device:
@@ -56,11 +66,53 @@ def compute_disparity_volume(left, right, cfg: SGMConfig) -> torch.Tensor:
     return sgm.aggregate(c, cfg.p1, cfg.p2, cfg.num_paths)
 
 
-def raw_disparity(left, right, cfg: SGMConfig, matcher=cuda_sgm.sgm_disparity):
+def check_float32_route(cfg: SGMConfig, shape, device) -> None:
+    """Raise ValueError where the float32 route may not run cfg at an
+    (h, w) image on device: on the card above _FLOAT32_ROUTE_LIMIT cells,
+    with the JAX package's message (depthestimation_tpu/pipeline.py:59-75).
+    It runs at any size on the CPU, as JAX's does."""
+    volume = shape[0] * shape[1] * cfg.num_disp
+    if torch.device(device).type == "cuda" and volume > _FLOAT32_ROUTE_LIMIT:
+        raise ValueError(
+            "This configuration is outside the CUDA matcher's support "
+            f"(cost={cfg.cost!r}, num_disp={cfg.num_disp}, "
+            f"image {shape[0]}x{shape[1]}) and is too large for the float32 "
+            f"matcher on the card ({volume / 2**20:.0f}M-element cost "
+            "volume: expect multi-GB buffers). Use cost='bt' with num_disp "
+            "small enough for int16 costs, downscale the input, or pass "
+            "matcher=float32_disparity to raw_disparity to force the "
+            "float32 route anyway."
+        )
+
+
+def float32_disparity(left, right, cfg: SGMConfig) -> torch.Tensor:
+    """The float32 route: compute_disparity_volume, then the WTA tail (the
+    JAX package's XLA matcher, depthestimation_tpu/pipeline.py:81-84).
+    Counted as a call of "float32_route" in cuda_build.CALLS on every
+    device; it launches no kernel of its own."""
+    _called("float32_route")
+    s = compute_disparity_volume(left, right, cfg)
+    return wta.wta_disparity(s, cfg.min_disp, cfg.uniqueness_ratio, cfg.disp12_max_diff)
+
+
+def raw_disparity(left, right, cfg: SGMConfig, matcher=None):
     """Full matcher: prefilter/cost/aggregate/WTA, then the in-matcher
     speckle filter. Output float32 (H, W) disparity in pixels on the 1/16
-    grid; invalid = min_disp - 1. `matcher` is the (left, right, cfg) ->
-    disparity stage, replaceable to compare kernels with plain versions."""
+    grid; invalid = min_disp - 1.
+
+    The route follows from cfg and the image's shape, as in the JAX
+    package: the kernels (cuda_sgm.sgm_disparity) wherever
+    cuda_sgm.kernels_supported holds, else the float32 route
+    (float32_disparity, within check_float32_route's limit). `matcher`,
+    the (left, right, cfg) -> disparity stage, replaces that choice, to
+    compare kernels with plain versions."""
+    if matcher is None:
+        shape = tuple(left.shape)
+        if cuda_sgm.kernels_supported(cfg, shape):
+            matcher = cuda_sgm.sgm_disparity
+        else:
+            check_float32_route(cfg, shape, left.device)
+            matcher = float32_disparity
     disp = matcher(left, right, cfg)
     if cfg.speckle_window_size > 0:
         # cv2.StereoSGBM runs filterSpeckles inside compute() on the x16

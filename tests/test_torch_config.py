@@ -112,6 +112,9 @@ DTYPE_GRID = [
     dict(cost="census", block_size=41),
     dict(num_disp=256, block_size=3),
     dict(num_disp=64, min_disp=3),
+    # Above 256 the kernels' wide variants take any D, as Pallas does.
+    dict(num_disp=288),
+    dict(num_disp=1024),
 ]
 
 
@@ -143,7 +146,7 @@ def test_final_dtype_int32_where_int16_wraps():
         # BT's (see test_default_config_supported) but not without end.
         (dict(cost="census", block_size=41), (64, 256), "census"),
         (dict(block_size=15), (64, 256), "int16 bounds"),
-        (dict(num_disp=512), (64, 1024), "int16 bounds"),
+        (dict(block_size=7), (5, 256), "launch shapes"),
         (dict(num_disp=128), (64, 128), "int16 bounds"),
     ],
 )

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from depthestimation_torch import SGMConfig, StereoDepthEstimator
+from depthestimation_torch import SGMConfig, StereoDepthEstimator, pipeline
 from depthestimation_torch.ops import cuda_sgm, filters, remap
 
 pytestmark = pytest.mark.cuda
@@ -22,7 +22,9 @@ pytestmark = pytest.mark.cuda
 # combination. K1 edge geometry: a block covers 32 - 2r rows (28 at block
 # size 5, 32 at 1), 64 columns and 64 disparities, so the cases below also
 # take H under one strip and one row past it, W under one tile, and D of
-# 16 (one d-block, 2 of its 8 warps busy) and 256 (four d-blocks).
+# 16 (one d-block, 2 of its 8 warps busy) and 256 (four d-blocks). Above
+# 256, K2 and K3 launch their wide variants: D = 272 (a last chunk of 16,
+# one lane in two busy), 512 (two whole chunks) and 1024 (four).
 CASES = [
     (24, 100, dict(num_disp=16)),
     (37, 150, dict(num_disp=48, min_disp=3)),
@@ -39,6 +41,10 @@ CASES = [
     (9, 300, dict(num_disp=256, block_size=1, min_disp=2)),
     (20, 130, dict(num_disp=80, block_size=15, prefilter_cap=1)),
     (17, 70, dict(num_disp=16, block_size=17, prefilter_cap=1)),
+    (20, 300, dict(num_disp=272)),
+    (18, 530, dict(num_disp=512, block_size=3, min_disp=4)),
+    (9, 1040, dict(num_disp=1024, block_size=1)),
+    (30, 290, dict(num_disp=272, block_size=11)),
 ]
 
 
@@ -80,10 +86,14 @@ def test_kernels_match_plain(card, h, w, kw):
     swe = cuda_sgm.hscan(c, cfg)
     s = cuda_sgm.rowsweep(c, swe, cfg, (0,), False, final)
     torch.cuda.synchronize()
+    k2, k3 = cuda_sgm._hscan_name(cfg.num_disp), cuda_sgm._rowsweep_name((0,), False,
+                                                                        cfg.num_disp)
+    assert (k2, k3) == (("hscan_wide", "rowsweep_wide") if cfg.num_disp > 256
+                        else ("hscan", "rowsweep"))
     counts = {k: v for k, v in cuda_sgm.LAUNCHES.items() if v}
-    assert counts == {"cost_volume": 1, "hscan": 2, "rowsweep": 1}
+    assert counts == {"cost_volume": 1, k2: 2, k3: 1}
     calls = {k: v for k, v in cuda_sgm.CALLS.items() if v}
-    assert calls == {"cost_volume": 1, "hscan": 1, "rowsweep": 1}
+    assert calls == {"cost_volume": 1, k2: 1, k3: 1}
     assert swe.dtype == cuda_sgm._acc_dtype(cfg)
     assert s.dtype == final
     assert_same(c, cuda_sgm.cost_volume_plain(left, right, cfg))
@@ -122,7 +132,7 @@ def test_rowsweep_variants_match_plain(card, h, w, kw, dxs, reverse):
         cuda_sgm.reset_launches()
         got = cuda_sgm.rowsweep(c, acc, cfg, dxs, reverse, out_dtype)
         torch.cuda.synchronize()
-        name = cuda_sgm._rowsweep_name(dxs, reverse)
+        name = cuda_sgm._rowsweep_name(dxs, reverse, cfg.num_disp)
         assert cuda_sgm.LAUNCHES[name] == len(dxs)
         assert cuda_sgm.CALLS[name] == 1
         assert_same(got, cuda_sgm.rowsweep_plain(c, acc, cfg, dxs, reverse,
@@ -134,7 +144,8 @@ def test_rowsweep_variants_match_plain(card, h, w, kw, dxs, reverse):
 # to 1, 2, 4, 8): W under one K2 stage (5 at D=16, 7 at D=128) and not a
 # multiple of it (45, 13, 70); H much larger than W and W much larger than
 # H for the diagonals; D 16 and 256; int32 acc and out at block sizes 11
-# and 13.
+# and 13; the wide variants at D 272, 512 and 1024 (one warp a line in
+# chunks of 256), with W and H of 1 to 40.
 SCAN_CASES = [
     (1, 5, dict(num_disp=16)),
     (3, 45, dict(num_disp=16, block_size=3)),
@@ -145,6 +156,11 @@ SCAN_CASES = [
     (9, 33, dict(num_disp=256, block_size=1)),
     (20, 30, dict(num_disp=64, block_size=11)),
     (17, 21, dict(num_disp=32, block_size=13, prefilter_cap=15)),
+    (3, 40, dict(num_disp=272)),
+    (40, 3, dict(num_disp=272, block_size=11)),
+    (5, 9, dict(num_disp=512, block_size=3)),
+    (2, 7, dict(num_disp=1024)),
+    (1, 1, dict(num_disp=1024, block_size=13, prefilter_cap=15)),
 ]
 
 
@@ -223,6 +239,40 @@ def test_matcher_and_estimator_match_cpu(card, kw):
     np.testing.assert_allclose(outs[0][1], outs[1][1], rtol=1e-5)
 
 
+@pytest.mark.parametrize("kw", [dict(), dict(sgbm_mode="hh4"), dict(sgbm_mode="hh"),
+                                dict(cost="census", sgbm_mode="sgbm")])
+def test_wide_matcher_matches_cpu(card, kw):
+    """D = 288 through raw_disparity: the wide K2/K3 launched, equal to the
+    plain versions on the card and to the CPU."""
+    left, right = pair(24, 400, 270, seed=4, device=card)
+    cfg = SGMConfig(num_disp=288, **kw)
+    cuda_sgm.reset_launches()
+    got = pipeline.raw_disparity(left, right, cfg)
+    torch.cuda.synchronize()
+    assert cuda_sgm.CALLS["hscan_wide"] == 1 and cuda_sgm.LAUNCHES["hscan"] == 0
+    assert cuda_sgm.CALLS["float32_route"] == 0
+    assert torch.equal(got, pipeline.raw_disparity(left, right, cfg,
+                                                   matcher=cuda_sgm.sgm_disparity_plain))
+    assert torch.equal(got.cpu(), pipeline.raw_disparity(left.cpu(), right.cpu(), cfg))
+    assert (torch.abs(got[:, 300:] - 270) <= 1).float().mean() > 0.9
+
+
+def test_float32_route_on_card(card):
+    """Outside the kernels' bounds raw_disparity takes the float32 route on
+    the card too: no kernel launched, equal to the CPU; above 1 << 26
+    cells it raises before anything runs."""
+    left, right = pair(20, 200, 9, seed=6, device=card)
+    cfg = SGMConfig(num_disp=64, block_size=15)
+    cuda_sgm.reset_launches()
+    got = pipeline.raw_disparity(left, right, cfg)
+    torch.cuda.synchronize()
+    assert cuda_sgm.CALLS["float32_route"] == 1 and not any(cuda_sgm.LAUNCHES.values())
+    assert torch.equal(got.cpu(), pipeline.raw_disparity(left.cpu(), right.cpu(), cfg))
+    big = torch.zeros((1024, 1040), device=card)  # 1024 * 1040 * 64 > 1 << 26
+    with pytest.raises(ValueError, match="too large for the float32 matcher"):
+        pipeline.raw_disparity(big, big, cfg)
+
+
 def test_box_mean_matches_cpu(card):
     """The WLS box means divide alike on both devices (CUDA would multiply
     by the reciprocal of a host scalar divisor)."""
@@ -247,7 +297,9 @@ def test_wrapper_checks(card):
     img = torch.zeros((8, 64), device=card)
     with pytest.raises(ValueError, match="shape"):
         remap.remap_bilinear(img, img, torch.zeros((8, 63), device=card))
-    # Shapes K1 does not take are refused by the kernel, not computed.
-    for kw in (dict(num_disp=272), dict(block_size=19, prefilter_cap=1)):
-        with pytest.raises(RuntimeError, match="CUDA error"):
-            cuda_sgm.cost_volume(img, img, SGMConfig(**kw))
+    # Shapes K1 does not take are refused by the kernel, not computed. No
+    # num_disp is left to refuse: K1 tiles D on its grid (up to 65535 * 64
+    # disparities) and K2/K3 take any multiple of 16 above 256 through
+    # their wide variants.
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_sgm.cost_volume(img, img, SGMConfig(block_size=19, prefilter_cap=1))
