@@ -126,6 +126,10 @@ Phases (any failure exits non-zero and prints no result):
         hh at D = 288 through StereoDepthEstimator on a 240x720 pair moved
         270 px, counts exactly the wide variants of the path (K3's up and
         diagonal passes), the shift on >= 95 %, kernels == plain versions;
+        bench.py's hh_8path_1080p_256d (hh, no speckle, fast mode) on the
+        1080x1920 pair at D = 256 and 272, each side of the switch to the
+        wide K2 and K3: exact counts, the shift on >= 95 %, K2 and both K3
+        passes == plain versions and timed, ms per pair;
         BT at block size 15 (past the int16 bounds) at 256x640x64 through
         the facade's graph: a replay equal to the eager functions, one
         float32_route call and no launch a pair, card == CPU, and
@@ -1590,12 +1594,75 @@ def wide_holds(errs):
     return by_kernel
 
 
+# bench.py's hh_8path_1080p_256d (bench.py:562-566: hh, no speckle, fast
+# mode), at D = 256 (the narrow K2 and K3) and 272 (their wide variants).
+SWITCH_DISPS = (256, 272)
+
+
+def _switch_sides(counts_of):
+    """bench.py's hh_8path_1080p_256d on phase 3's 1080p pair (the known
+    20 px shift) at each of SWITCH_DISPS, each side of the switch to the
+    wide K2 and K3: a pair through StereoDepthEstimator launches exactly
+    the path's kernels and recovers the shift on >= 95 %; K2 and hh's
+    two K3 passes on that pair equal their plain versions bit for bit and
+    are timed. Returns {D: numbers}."""
+    from depthestimation_torch import StereoDepthEstimator
+    from depthestimation_torch.ops import cuda_sgm
+
+    left_rgb, right_rgb = texture_pair(H, W, SHIFT, seed=0)
+    out = {}
+    for d in SWITCH_DISPS:
+        path = f"j hh 1080p {d}"
+        k2, down, up = (cuda_sgm._hscan_name(d), cuda_sgm._rowsweep_name((0, 1, -1), False, d),
+                        cuda_sgm._rowsweep_name((0, -1, 1), True, d))
+        est = StereoDepthEstimator(device="cuda")
+        est.left_source, est.right_source = left_rgb, right_rgb
+        est.configure_sgbm(num_disp=d, focal_length=1000.0, baseline=0.1, sgbm_mode="hh",
+                           speckle_window_size=0)
+        est.core.fast_mode = True
+        disp, depth = drive(est, counts_of, path, {"cost_volume": (1, 1), k2: (1, 2),
+                                                  down: (1, 3), up: (1, 3)})
+        check_output(disp, depth, (H, W - d), path)
+        hit = float((np.abs(disp - SHIFT) <= 1.0).mean())
+        if hit < 0.95:
+            raise AssertionError(f"{path}: known shift on {hit:.4%} of pixels")
+        numbers = {"shift_hit": hit, "ms_per_pair": host_ms(est.estimate_depth, runs=3)}
+        # The kernels on the pair as the matcher got it; the graph's pool
+        # goes first (GBs).
+        cfg, gl, gr = est.core.cfg, est.core.left_rectified, est.core.right_rectified
+        est.core._graph_cache.clear()
+        torch.cuda.empty_cache()
+        acc, final = cuda_sgm._acc_dtype(cfg), cuda_sgm._final_dtype(cfg)
+        c = cuda_sgm.cost_volume(gl, gr, cfg)
+        swe = cuda_sgm.hscan(c, cfg)
+        s5 = cuda_sgm.rowsweep(c, swe, cfg, (0, 1, -1), False, acc)
+        errs = {}
+        hold_exact(f"{path} {k2}", swe, cuda_sgm.hscan_plain(c, cfg), errs, "3j")
+        hold_exact(f"{path} {down}", s5,
+                   cuda_sgm.rowsweep_plain(c, swe, cfg, (0, 1, -1), False, acc), errs, "3j")
+        hold_exact(f"{path} {up}", cuda_sgm.rowsweep(c, s5, cfg, (0, -1, 1), True, final),
+                   cuda_sgm.rowsweep_plain(c, s5, cfg, (0, -1, 1), True, final), errs, "3j")
+        timed = {k2: lambda: cuda_sgm.hscan(c, cfg),
+                 down: lambda: cuda_sgm.rowsweep(c, swe, cfg, (0, 1, -1), False, acc),
+                 up: lambda: cuda_sgm.rowsweep(c, s5, cfg, (0, -1, 1), True, final)}
+        numbers["kernels"] = {name: {"ms": time_ms(kern), "max_abs_err": errs[f"{path} {name}"],
+                                     "launches": counts_of[path][name][1]}
+                              for name, kern in timed.items()}
+        log(f"[3j] {path} (hh_8path_1080p_256d's flags): known {SHIFT} px shift on {hit:.4%}; "
+            f"{k2}, {down} and {up} == plain versions (exact); {numbers}")
+        out[d] = numbers
+        del est, c, swe, s5, timed
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_wide(counts_of):
     """The hh4 and hh paths at D = 288 (examples.stereo's D at downscale
     1.0) through StereoDepthEstimator on a 240x720 texture pair moved by
     270 px, north-star flags: each pair launches exactly the wide variants
     of its path, recovers the shift on >= 95 % of the pixels, and its raw
-    disparity equals the plain-composed one. Then the float32 route (BT at
+    disparity equals the plain-composed one. Then bench.py's
+    hh_8path_1080p_256d at D = 256 and 272 (_switch_sides). Then the float32 route (BT at
     block size 15, past the int16 bounds, D = 64 at 256x640): the facade's
     first call captures its graph, a replay equals the eager functions bit
     for bit and counts one float32_route call and no launch, raw_disparity
@@ -1631,6 +1698,8 @@ def phase_wide(counts_of):
         log(f"[3j] {path}: known {shift} px shift on {hit:.4%}; raw disparity: kernels == "
             "plain versions on the card (exact)")
         del est
+
+    result["hh_8path_1080p"] = _switch_sides(counts_of)
 
     kw = dict(num_disp=64, block_size=15)
     left_rgb, right_rgb = texture_pair(256, 640, 9, seed=6)

@@ -658,45 +658,118 @@ rowsweep_kernel(const int16_t* __restrict__ cost, const InT* __restrict__ acc,
 }
 
 // ---------------------------------------------------------------------------
-// K2 and K3 for D above 256 ("wide"; dispatched by ops/cuda_sgm.py): the
-// same scans, lines and outputs as hscan_kernel and rowsweep_kernel, for
-// any D that is a multiple of 16.
+// K2 and K3 for D above 256 ("wide"; dispatched by ops/cuda_sgm.py through
+// sgm_hscan_wide and sgm_rowsweep_wide): the scans, lines and outputs of
+// hscan_kernel and rowsweep_kernel, for D a multiple of 16 up to the
+// shared-memory ceiling below.
 //
-// The kernels above keep a line's whole carry in registers, K <= 8
-// disparities a lane, so one warp holds at most 256. Here one warp still
-// owns one line, but walks D in chunks of 256 (lane l takes disparities
-// [j*256 + 8l, j*256 + 8l + 8) of chunk j), so the carry L' lives in a
-// scratch row of the line in device memory (2 * (D + 16) int32: the
-// previous step's L' and this step's L, a few KB a line, which stay in
-// L2). Each buffer has kWidePad kBig cells on both sides, so the d-1 and
-// d+1 neighbours past either end read kBig, as lanes past D do above; the
-// neighbours across lanes and chunks are plain reads of L'. min over D of
-// L' is the running min of the previous step's writes, one warp reduction
-// a step, and a __syncwarp orders the step's writes before the next
-// step's reads. C and the other operands are read straight from the
-// volume with 16-byte loads (no ring), so a step waits for its loads: a
-// simple form, timed in PERF.md.
+// Replaces depthestimation_tpu/ops/pallas_sgm.py::_hscan_kernel and
+// ::_rowsweep_kernel where D > 256.
 //
-// Bound: bytes, as K2 and K3 above (the scratch rows stay in L2).
+// Bound: bytes, as chip_smoke.kernel_work counts them at 3.35 TB/s: a K2
+// call reads C and writes the sum, n * (2 + acc) bytes for n cells (2.03 ms
+// at 1988x2964x288, int16); a K3 pass n * (2 + acc + out) (3.04 ms). The
+// two launches of K2 move 10 B a cell (C twice, L out and back, the sum:
+// 5.07 ms at that shape), a three-direction K3 pass 18 (9.12 ms).
+//
+// Design. The kernels above keep a line's carry in registers, at most 8
+// disparities a lane, so one warp holds at most 256. An earlier wide
+// version kept L' in a scratch row in device memory and read C and the
+// sums straight from the volumes: each step wrote L, synced the warp, read
+// L' back through L2 and waited a DRAM latency for its loads, about 1.66 us
+// a step at 1988x2964x288. Here the carry never leaves the SM and every
+// load comes through the ring, so a step waits on neither:
+//  - 256 < D <= kLaneMax (512): K = 16 registers a lane (LaneCarry<16>),
+//    the d +- 1 neighbours across lanes by shuffles as above (18 of the 32
+//    lanes live at D = 288); a ring stage is 2 columns (K2) or 1 pixel
+//    (K3), 1-3 KB an operand.
+//  - D > kLaneMax: 8 disparities a lane in chunks of 256, the carry in the
+//    warp's shared memory beside its ring (ChunkCarry); a stage is one
+//    step. A block takes as many warps (at most kScanWarps) as their rings
+//    and carries fit in kMaxBlockSmem; where one warp does not fit (D above
+//    11,600 with int16 sums, 8,928 with int32 ones) the launch is refused,
+//    and ops/cuda_sgm.wide_fits, which computes the same bytes, keeps such
+//    configs off the kernels.
+// The ring has kWideRing stages a warp, each filled by one bulk copy (TMA,
+// cp.async.bulk) a run, C and L or the partial sum, that lane 0 issues on
+// the stage's mbarrier. PERF.md section 6 has the turns that chose this
+// design: bulk copies against 16-byte cp.async copies from every lane,
+// ring depths of 3, 4, 6 and 8, and the registers against the chunked
+// carry up to 512 (scripts/kernel_turns.py --wide --rings / --other).
 // ---------------------------------------------------------------------------
 
-constexpr int kWideK = 8;                  // disparities of a lane a chunk
-constexpr int kWideChunk = 32 * kWideK;    // disparities of a warp a chunk
-constexpr int kWidePad = 8;                // kBig cells on each side of L'
+constexpr int kWideRing = 3;  // ring stages per warp
+// K of the wide kernels above kLaneMax disparities: the carry in shared
+// memory, 8 disparities a lane in chunks of 256 (ChunkCarry).
+constexpr int kChunked = 0;
+constexpr int kLaneMax = 512;  // largest D whose carry stays in registers
+// Shared memory a block can take on sm_90 (227 KB).
+constexpr size_t kMaxBlockSmem = 232448;
 
-// int32 cells of one carry buffer; a line's scratch row holds two.
-__host__ __device__ constexpr int wide_cells(int D) {
-  return D + 2 * kWidePad;
+// Scan steps per ring stage: K2 2 columns at K = 16, K3 1 pixel; one step
+// for the chunked carry.
+template <int K>
+__host__ __device__ constexpr int hscan_wide_stage() {
+  return K == kChunked ? 1 : hscan_stage<K>();
+}
+template <int K>
+__host__ __device__ constexpr int rowsweep_wide_stage() {
+  return K == kChunked ? 1 : rowsweep_stage<K>();
 }
 
-// Both carry buffers of a line: kBig pads around a zero L' (a fresh path).
-__device__ __forceinline__ void wide_init(int* row, int D, int lane) {
-  const int n = wide_cells(D);
-  for (int i = lane; i < 2 * n; i += 32) {
-    const int j = i % n;
-    row[i] = (j < kWidePad || j >= kWidePad + D) ? kBig : 0;
+// The carry of a line in registers, as in the kernels above: lane l holds
+// L' at [l*K, l*K + K), kBig past D.
+template <int K>
+struct LaneCarry {
+  int l[K];
+  int lane;
+  bool live;
+
+  __device__ __forceinline__ LaneCarry(int lane_, int D, int*)
+      : lane(lane_), live(lane_ * K < D) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) l[k] = live ? 0 : kBig;
   }
-  __syncwarp();
+
+  // One scan step: C from the D-long run c (shared memory), the new L, or
+  // with ADD the sum a + L, stored to the D-long run out.
+  template <bool ADD, typename InT, typename OutT>
+  __device__ __forceinline__ void step(const int16_t* c, const InT* a,
+                                       OutT* out, int, int p1, int p2) {
+    int cv[K], av[K];
+    if (live) {
+      load_vec<K>(c + lane * K, cv);
+      if constexpr (ADD) load_vec<K>(a + lane * K, av);
+    }
+    sgm_step<K>(l, cv, live, lane, p1, p2);
+    if (live) {
+      if constexpr (ADD) {
+        int s[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) s[k] = av[k] + l[k];
+        store_vec<K>(out + lane * K, s);
+      } else {
+        store_vec<K>(out + lane * K, l);
+      }
+    }
+  }
+};
+
+// Above kLaneMax: lane l takes [j*256 + 8l, j*256 + 8l + 8) of chunk j,
+// and the warp's carry is two buffers of wide_cells(D) int32 in shared
+// memory (the previous step's L' and this step's L), each with kWidePad
+// kBig cells on both sides, so the d-1 and d+1 neighbours past either end
+// read kBig; the neighbours across lanes and chunks are reads of L'. min
+// over D of L' is the running min of the previous step's writes, one warp
+// reduction a step, and a __syncwarp orders the step's writes and reads
+// before the next step's.
+constexpr int kWideK = 8;                // disparities of a lane a chunk
+constexpr int kWideChunk = 32 * kWideK;  // disparities of a warp a chunk
+constexpr int kWidePad = 8;              // kBig cells on each side of L'
+
+// int32 cells of one carry buffer; a warp holds two.
+__host__ __device__ constexpr int wide_cells(int D) {
+  return D + 2 * kWidePad;
 }
 
 // The recurrence of sgm_step on the run [d0, d0 + 8): L' and its two
@@ -731,55 +804,200 @@ __device__ __forceinline__ int wide_keep(int* next, int d0,
   return m;
 }
 
-// K2, wide: forward stores L (int16), backward stores L_lr + L in OutT.
-template <bool BACKWARD, typename OutT>
-__global__ void __launch_bounds__(32 * kScanWarps)
-hscan_wide_kernel(const int16_t* __restrict__ cost,
-                  const int16_t* __restrict__ lin, OutT* __restrict__ out,
-                  int* __restrict__ scratch, int h, int w, int D, int p1,
-                  int p2) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kScanWarps + warp;
-  if (row >= h) return;  // warp-uniform; the kernel has no block barrier
-  int* const carry = scratch + (size_t)row * 2 * wide_cells(D);
-  wide_init(carry, D, lane);
-  const size_t base = (size_t)row * w * D;
-  int m = 0;  // min over D of L' (zero before the first step)
-  for (int i = 0; i < w; ++i) {
-    const int x = BACKWARD ? w - 1 - i : i;
-    const int* const prev = carry + (i & 1) * wide_cells(D);
-    int* const next = carry + ((i + 1) & 1) * wide_cells(D);
-    const size_t p = base + (size_t)x * D;
+struct ChunkCarry {
+  int* buf;  // the warp's two carry buffers
+  int lane, cells, par, m;
+
+  // A fresh path: L' = 0 (and min L' = 0) between the kBig pads.
+  __device__ __forceinline__ ChunkCarry(int lane_, int D, int* smem)
+      : buf(smem), lane(lane_), cells(wide_cells(D)), par(0), m(0) {
+    for (int i = lane; i < 2 * cells; i += 32) {
+      const int j = i % cells;
+      buf[i] = (j < kWidePad || j >= kWidePad + D) ? kBig : 0;
+    }
+    __syncwarp();
+  }
+
+  template <bool ADD, typename InT, typename OutT>
+  __device__ __forceinline__ void step(const int16_t* c, const InT* a,
+                                       OutT* out, int D, int p1, int p2) {
+    const int* const prev = buf + par * cells;
+    int* const next = buf + (par ^ 1) * cells;
     int mn = kBig;
     for (int d0 = lane * kWideK; d0 < D; d0 += kWideChunk) {
-      int c[kWideK], l[kWideK];
-      load_vec<kWideK>(cost + p + d0, c);
-      wide_run(prev, d0, c, m, p1, p2, l);
+      int cv[kWideK], l[kWideK];
+      load_vec<kWideK>(c + d0, cv);
+      wide_run(prev, d0, cv, m, p1, p2, l);
       mn = min(mn, wide_keep(next, d0, l));
-      if (BACKWARD) {
-        int a[kWideK], s[kWideK];
-        load_vec<kWideK>(lin + p + d0, a);
+      if constexpr (ADD) {
+        int av[kWideK], s[kWideK];
+        load_vec<kWideK>(a + d0, av);
 #pragma unroll
-        for (int k = 0; k < kWideK; ++k) s[k] = a[k] + l[k];
-        store_vec<kWideK>(out + p + d0, s);
+        for (int k = 0; k < kWideK; ++k) s[k] = av[k] + l[k];
+        store_vec<kWideK>(out + d0, s);
       } else {
-        store_vec<kWideK>(out + p + d0, l);
+        store_vec<kWideK>(out + d0, l);
       }
     }
     m = __reduce_min_sync(kFull, mn);
     __syncwarp();  // this step's L is written before the next step reads it
+    par ^= 1;
+  }
+};
+
+template <int K>
+using Carry =
+    typename std::conditional<K == kChunked, ChunkCarry, LaneCarry<K>>::type;
+
+// Bytes of shared memory a warp takes besides its ring: the chunked
+// carry's two buffers, and an mbarrier a stage.
+__host__ __device__ constexpr size_t carry_bytes(int K, int D) {
+  return K == kChunked ? 2 * sizeof(int) * (size_t)wide_cells(D) : 0;
+}
+constexpr size_t kBarBytes = sizeof(uint64_t) * kWideRing;
+
+// The bulk-copy ring: an mbarrier a stage, initialised once for one
+// arrival (lane 0's, with the stage's bytes); the copies complete it.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Lane 0 arrives on the stage's barrier, which then waits for `bytes`.
+__device__ __forceinline__ void bar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// n bytes (a multiple of 16, both ends 16-byte aligned) in one copy.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned n, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(n), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Waits until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Before the first stage is issued: the ring's barriers.
+__device__ __forceinline__ void wide_ring_start(uint64_t* bars, int lane) {
+  if (lane == 0) {
+    for (int s = 0; s < kWideRing; ++s) bar_init(bars + s);
+    bar_init_fence();
+  }
+  __syncwarp();
+}
+
+// Waits until stage j of the ring has landed and is visible to the warp.
+__device__ __forceinline__ void wide_ring_ready(uint64_t* bars, int j) {
+  bar_wait(bars + j % kWideRing, (j / kWideRing) & 1);
+}
+
+// The warp's shared memory behind the block's rings: a chunked carry's
+// buffers first, then the ring's barriers.
+struct WideSmem {
+  int* carry;
+  uint64_t* bars;
+
+  __device__ __forceinline__ WideSmem(unsigned char* rings_end, int K, int D,
+                                      int warps, int warp)
+      : carry(reinterpret_cast<int*>(rings_end + warp * carry_bytes(K, D))),
+        bars(reinterpret_cast<uint64_t*>(rings_end + warps * carry_bytes(K, D)) +
+             warp * kWideRing) {}
+};
+
+// K2, wide: hscan_kernel's scan with a wide carry (K = 16 or kChunked) and
+// kWideRing stages; a block has blockDim.x / 32 warps (scan_launch).
+template <int K, bool BACKWARD, typename OutT>
+__global__ void __launch_bounds__(32 * kScanWarps)
+hscan_wide_kernel(const int16_t* __restrict__ cost,
+                  const int16_t* __restrict__ lin, OutT* __restrict__ out,
+                  int h, int w, int D, int p1, int p2) {
+  constexpr int G = hscan_wide_stage<K>();  // columns per stage
+  constexpr int R = kWideRing;
+  constexpr int NOPS = BACKWARD ? 2 : 1;    // operands streamed: C (and L)
+  extern __shared__ __align__(16) int16_t scan_ring[];
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * warps + warp;
+  if (row >= h) return;  // warp-uniform; the kernel has no block barrier
+  const int sd = G * D;  // int16 per stage and operand
+  int16_t* const cr = scan_ring + (size_t)warp * NOPS * R * sd;
+  int16_t* const lr = cr + R * sd;
+  const WideSmem sm(reinterpret_cast<unsigned char*>(scan_ring + (size_t)warps * NOPS * R * sd),
+                    K, D, warps, warp);
+  const size_t base = (size_t)row * w * D;
+  const int nst = (w + G - 1) / G;
+
+  // Stage j holds scan steps j*G .. j*G + G - 1: columns [lo(j), hi(j)).
+  auto lo = [&](int j) { return BACKWARD ? max(w - (j + 1) * G, 0) : j * G; };
+  auto hi = [&](int j) { return BACKWARD ? w - j * G : min((j + 1) * G, w); };
+  auto issue = [&](int j) {
+    if (j < nst) {
+      const int s = j % R, x0 = lo(j), n = (hi(j) - x0) * D * 2;
+      if (lane == 0) {
+        bar_expect(sm.bars + s, NOPS * n);
+        bulk_copy(cr + s * sd, cost + base + (size_t)x0 * D, n, sm.bars + s);
+        if (BACKWARD) bulk_copy(lr + s * sd, lin + base + (size_t)x0 * D, n, sm.bars + s);
+      }
+    }
+  };
+
+  Carry<K> carry(lane, D, sm.carry);
+  wide_ring_start(sm.bars, lane);
+  for (int j = 0; j < R - 1; ++j) issue(j);
+  for (int j = 0; j < nst; ++j) {
+    issue(j + R - 1);  // into the stage scanned at j - 1
+    wide_ring_ready(sm.bars, j);
+    const int x0 = lo(j), n = hi(j) - x0;
+    const int16_t* const cs = cr + (j % R) * sd;
+    const int16_t* const ls = lr + (j % R) * sd;
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      if (i >= n) break;  // warp-uniform
+      const int o = BACKWARD ? n - 1 - i : i;
+      carry.template step<BACKWARD>(cs + o * D, ls + o * D,
+                                    out + base + (size_t)(x0 + o) * D, D, p1, p2);
+    }
+    __syncwarp();  // every lane is done with this stage before it is refilled
   }
 }
 
-// K3, wide: out = acc + L_(dy, dx) along every line, as rowsweep_kernel.
-template <typename InT, typename OutT>
+// K3, wide: rowsweep_kernel's lines with a wide carry and kWideRing stages
+// of one pixel each.
+template <int K, typename InT, typename OutT>
 __global__ void __launch_bounds__(32 * kScanWarps)
 rowsweep_wide_kernel(const int16_t* __restrict__ cost,
                      const InT* __restrict__ acc, OutT* __restrict__ out,
-                     int* __restrict__ scratch, int h, int w, int D, int dy,
-                     int dx, int p1, int p2) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int line = blockIdx.x * kScanWarps + warp;
+                     int h, int w, int D, int dy, int dx, int p1, int p2) {
+  constexpr int G = rowsweep_wide_stage<K>();  // pixels per stage
+  constexpr int R = kWideRing;
+  extern __shared__ __align__(16) int16_t scan_ring[];
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int line = blockIdx.x * warps + warp;
   if (line >= (dx == 0 ? w : w + h - 1)) return;  // warp-uniform
   // The line's first pixel and pixel count, as in rowsweep_kernel.
   const bool from_col = line >= w;
@@ -789,29 +1007,50 @@ rowsweep_wide_kernel(const int16_t* __restrict__ cost,
   const int rows_left = dy > 0 ? h - y : y + 1;
   const int cols_left = dx > 0 ? w - x : (dx < 0 ? x + 1 : rows_left);
   const int n = min(rows_left, cols_left);
-  const ptrdiff_t step = ((ptrdiff_t)dy * w + dx) * D;
+  const ptrdiff_t stride = ((ptrdiff_t)dy * w + dx) * D;
   const ptrdiff_t p0 = ((ptrdiff_t)y * w + x) * D;
 
-  int* const carry = scratch + (size_t)line * 2 * wide_cells(D);
-  wide_init(carry, D, lane);
-  int m = 0;
-  for (int s = 0; s < n; ++s) {
-    const int* const prev = carry + (s & 1) * wide_cells(D);
-    int* const next = carry + ((s + 1) & 1) * wide_cells(D);
-    const ptrdiff_t p = p0 + (ptrdiff_t)s * step;
-    int mn = kBig;
-    for (int d0 = lane * kWideK; d0 < D; d0 += kWideChunk) {
-      int c[kWideK], a[kWideK], l[kWideK], o[kWideK];
-      load_vec<kWideK>(cost + p + d0, c);
-      load_vec<kWideK>(acc + p + d0, a);
-      wide_run(prev, d0, c, m, p1, p2, l);
-      mn = min(mn, wide_keep(next, d0, l));
+  // A stage: G pixels of C (int16), then G pixels of the partial sum (InT).
+  const int cb = D * 2, ab = D * (int)sizeof(InT);  // bytes per pixel
+  const int sb = G * (cb + ab);                      // bytes per stage
+  unsigned char* const rings = reinterpret_cast<unsigned char*>(scan_ring);
+  unsigned char* const ring = rings + (size_t)warp * R * sb;
+  const WideSmem sm(rings + (size_t)warps * R * sb, K, D, warps, warp);
+  auto issue = [&](int j) {
+    unsigned char* const st = ring + (j % R) * sb;
 #pragma unroll
-      for (int k = 0; k < kWideK; ++k) o[k] = a[k] + l[k];
-      store_vec<kWideK>(out + p + d0, o);
+    for (int g = 0; g < G; ++g) {
+      const int s = j * G + g;
+      if (s < n) {  // warp-uniform
+        const ptrdiff_t p = p0 + (ptrdiff_t)s * stride;
+        if (lane == 0) {
+          uint64_t* const bar = sm.bars + j % R;
+          if (g == 0) bar_expect(bar, min(G, n - j * G) * (cb + ab));
+          bulk_copy(st + g * cb, cost + p, cb, bar);
+          bulk_copy(st + G * cb + g * ab, acc + p, ab, bar);
+        }
+      }
     }
-    m = __reduce_min_sync(kFull, mn);
-    __syncwarp();  // this step's L is written before the next step reads it
+  };
+
+  Carry<K> carry(lane, D, sm.carry);
+  const int nst = (n + G - 1) / G;
+  wide_ring_start(sm.bars, lane);
+  for (int j = 0; j < R - 1; ++j) issue(j);
+  for (int j = 0; j < nst; ++j) {
+    issue(j + R - 1);  // into the stage scanned at j - 1
+    wide_ring_ready(sm.bars, j);
+    const unsigned char* const st = ring + (j % R) * sb;
+    const int16_t* const cs = reinterpret_cast<const int16_t*>(st);
+    const InT* const as = reinterpret_cast<const InT*>(st + G * cb);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int s = j * G + g;
+      if (s >= n) break;  // warp-uniform
+      carry.template step<true>(cs + g * D, as + g * D,
+                                out + p0 + (ptrdiff_t)s * stride, D, p1, p2);
+    }
+    __syncwarp();  // every lane is done with this stage before it is refilled
   }
 }
 
@@ -829,19 +1068,21 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// Launches a scan kernel with one warp per line and `smem` bytes of ring a
-// block (above 48 KB only after raising the kernel's limit).
+// Launches a scan kernel with one warp per line and `warps` warps a block,
+// each taking per_warp bytes of shared memory (above 48 KB a block only
+// after raising the kernel's limit).
 template <typename... Params, typename... Args>
-int scan_launch(void (*kernel)(Params...), int lines, size_t smem,
-                cudaStream_t stream, Args... args) {
+int scan_launch(void (*kernel)(Params...), int lines, int warps,
+                size_t per_warp, cudaStream_t stream, Args... args) {
+  const size_t smem = warps * per_warp;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         reinterpret_cast<const void*>(kernel),
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int blocks = (lines + kScanWarps - 1) / kScanWarps;
-  kernel<<<blocks, 32 * kScanWarps, smem, stream>>>(args...);
+  const int blocks = (lines + warps - 1) / warps;
+  kernel<<<blocks, 32 * warps, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -850,15 +1091,18 @@ int hscan_launch(const int16_t* cost, const int16_t* lin, void* out,
                  int out_int32, int backward, int h, int w, int D, int p1,
                  int p2, cudaStream_t stream) {
   const size_t stage = (size_t)hscan_stage<K>() * D * sizeof(int16_t);
-  const size_t fwd = kScanWarps * kRing * stage, bwd = 2 * fwd;
+  const size_t fwd = kRing * stage, bwd = 2 * fwd;
   if (!backward)
-    return scan_launch(&hscan_kernel<K, false, int16_t>, h, fwd, stream, cost,
-                       lin, static_cast<int16_t*>(out), h, w, D, p1, p2);
+    return scan_launch(&hscan_kernel<K, false, int16_t>, h, kScanWarps, fwd,
+                       stream, cost, lin, static_cast<int16_t*>(out), h, w, D,
+                       p1, p2);
   if (out_int32)
-    return scan_launch(&hscan_kernel<K, true, int32_t>, h, bwd, stream, cost,
-                       lin, static_cast<int32_t*>(out), h, w, D, p1, p2);
-  return scan_launch(&hscan_kernel<K, true, int16_t>, h, bwd, stream, cost,
-                     lin, static_cast<int16_t*>(out), h, w, D, p1, p2);
+    return scan_launch(&hscan_kernel<K, true, int32_t>, h, kScanWarps, bwd,
+                       stream, cost, lin, static_cast<int32_t*>(out), h, w, D,
+                       p1, p2);
+  return scan_launch(&hscan_kernel<K, true, int16_t>, h, kScanWarps, bwd,
+                     stream, cost, lin, static_cast<int16_t*>(out), h, w, D,
+                     p1, p2);
 }
 
 template <int K, typename InT>
@@ -866,16 +1110,16 @@ int rowsweep_launch_in(const int16_t* cost, const void* acc, void* out,
                        int out_int32, int h, int w, int D, int dy, int dx,
                        int p1, int p2, cudaStream_t stream) {
   const int lines = dx == 0 ? w : w + h - 1;
-  const size_t smem =
-      (size_t)kScanWarps * kRing * rowsweep_stage<K>() * D * (2 + sizeof(InT));
+  const size_t per_warp =
+      (size_t)kRing * rowsweep_stage<K>() * D * (2 + sizeof(InT));
   const InT* a = static_cast<const InT*>(acc);
   if (out_int32)
-    return scan_launch(&rowsweep_kernel<K, InT, int32_t>, lines, smem, stream,
-                       cost, a, static_cast<int32_t*>(out), h, w, D, dy, dx,
-                       p1, p2);
-  return scan_launch(&rowsweep_kernel<K, InT, int16_t>, lines, smem, stream,
-                     cost, a, static_cast<int16_t*>(out), h, w, D, dy, dx, p1,
-                     p2);
+    return scan_launch(&rowsweep_kernel<K, InT, int32_t>, lines, kScanWarps,
+                       per_warp, stream, cost, a, static_cast<int32_t*>(out),
+                       h, w, D, dy, dx, p1, p2);
+  return scan_launch(&rowsweep_kernel<K, InT, int16_t>, lines, kScanWarps,
+                     per_warp, stream, cost, a, static_cast<int16_t*>(out), h,
+                     w, D, dy, dx, p1, p2);
 }
 
 template <int K>
@@ -889,38 +1133,66 @@ int rowsweep_launch(const int16_t* cost, const void* acc, int acc_int32,
                                         dy, dx, p1, p2, stream);
 }
 
-// The wide scans take D a multiple of 16 (any size) and a scratch of
-// lines * 2 * wide_cells(D) int32, 16-byte aligned, that they overwrite.
-int hscan_wide_launch(const int16_t* cost, const int16_t* lin, void* out,
-                      int out_int32, int backward, int h, int w, int D,
-                      int p1, int p2, int* scratch, cudaStream_t stream) {
-  if (!backward)
-    return scan_launch(&hscan_wide_kernel<false, int16_t>, h, 0, stream, cost,
-                       lin, static_cast<int16_t*>(out), scratch, h, w, D, p1,
-                       p2);
-  if (out_int32)
-    return scan_launch(&hscan_wide_kernel<true, int32_t>, h, 0, stream, cost,
-                       lin, static_cast<int32_t*>(out), scratch, h, w, D, p1,
-                       p2);
-  return scan_launch(&hscan_wide_kernel<true, int16_t>, h, 0, stream, cost,
-                     lin, static_cast<int16_t*>(out), scratch, h, w, D, p1,
-                     p2);
+// Warps a block of a wide kernel whose warps take per_warp bytes each:
+// kScanWarps, or for the chunked carry as many as fit in a block (0: the
+// launch is refused). ops/cuda_sgm.wide_fits computes the same per_warp.
+int wide_warps(int K, size_t per_warp) {
+  if (K != kChunked) return kScanWarps;
+  const size_t fit = kMaxBlockSmem / per_warp;
+  return fit < (size_t)kScanWarps ? (int)fit : kScanWarps;
 }
 
-template <typename InT>
+template <int K>
+int hscan_wide_launch(const int16_t* cost, const int16_t* lin, void* out,
+                      int out_int32, int backward, int h, int w, int D,
+                      int p1, int p2, cudaStream_t stream) {
+  const size_t ring =
+      (size_t)kWideRing * hscan_wide_stage<K>() * D * sizeof(int16_t);
+  const size_t per_warp = (backward ? 2 : 1) * ring + carry_bytes(K, D) + kBarBytes;
+  const int warps = wide_warps(K, per_warp);
+  if (warps == 0) return (int)cudaErrorInvalidConfiguration;
+  if (!backward)
+    return scan_launch(&hscan_wide_kernel<K, false, int16_t>, h, warps,
+                       per_warp, stream, cost, lin, static_cast<int16_t*>(out),
+                       h, w, D, p1, p2);
+  if (out_int32)
+    return scan_launch(&hscan_wide_kernel<K, true, int32_t>, h, warps,
+                       per_warp, stream, cost, lin, static_cast<int32_t*>(out),
+                       h, w, D, p1, p2);
+  return scan_launch(&hscan_wide_kernel<K, true, int16_t>, h, warps, per_warp,
+                     stream, cost, lin, static_cast<int16_t*>(out), h, w, D,
+                     p1, p2);
+}
+
+template <int K, typename InT>
 int rowsweep_wide_launch_in(const int16_t* cost, const void* acc, void* out,
                             int out_int32, int h, int w, int D, int dy,
-                            int dx, int p1, int p2, int* scratch,
-                            cudaStream_t stream) {
+                            int dx, int p1, int p2, cudaStream_t stream) {
   const int lines = dx == 0 ? w : w + h - 1;
+  const size_t per_warp = (size_t)kWideRing * rowsweep_wide_stage<K>() * D *
+                              (2 + sizeof(InT)) +
+                          carry_bytes(K, D) + kBarBytes;
+  const int warps = wide_warps(K, per_warp);
+  if (warps == 0) return (int)cudaErrorInvalidConfiguration;
   const InT* a = static_cast<const InT*>(acc);
   if (out_int32)
-    return scan_launch(&rowsweep_wide_kernel<InT, int32_t>, lines, 0, stream,
-                       cost, a, static_cast<int32_t*>(out), scratch, h, w, D,
-                       dy, dx, p1, p2);
-  return scan_launch(&rowsweep_wide_kernel<InT, int16_t>, lines, 0, stream,
-                     cost, a, static_cast<int16_t*>(out), scratch, h, w, D,
-                     dy, dx, p1, p2);
+    return scan_launch(&rowsweep_wide_kernel<K, InT, int32_t>, lines, warps,
+                       per_warp, stream, cost, a, static_cast<int32_t*>(out),
+                       h, w, D, dy, dx, p1, p2);
+  return scan_launch(&rowsweep_wide_kernel<K, InT, int16_t>, lines, warps,
+                     per_warp, stream, cost, a, static_cast<int16_t*>(out), h,
+                     w, D, dy, dx, p1, p2);
+}
+
+template <int K>
+int rowsweep_wide_launch(const int16_t* cost, const void* acc, int acc_int32,
+                         void* out, int out_int32, int h, int w, int D,
+                         int dy, int dx, int p1, int p2, cudaStream_t stream) {
+  if (acc_int32)
+    return rowsweep_wide_launch_in<K, int32_t>(cost, acc, out, out_int32, h,
+                                               w, D, dy, dx, p1, p2, stream);
+  return rowsweep_wide_launch_in<K, int16_t>(cost, acc, out, out_int32, h, w,
+                                             D, dy, dx, p1, p2, stream);
 }
 
 template <int BS, bool CENSUS>
@@ -1017,30 +1289,33 @@ int sgm_rowsweep(const int16_t* cost, const void* acc, int acc_int32,
   }
 }
 
+// The wide scans take D a multiple of 16 (refused past the shared-memory
+// ceiling, wide_warps): K = 16 registers a lane up to kLaneMax, the chunked
+// carry above.
 int sgm_hscan_wide(const int16_t* cost, const int16_t* lin, void* out,
                    int out_int32, int backward, int h, int w, int D, int p1,
-                   int p2, int* scratch, cudaStream_t stream) {
+                   int p2, cudaStream_t stream) {
   if (D < 16 || D % 16 != 0 || !aligned16(cost) || !aligned16(out) ||
-      !aligned16(scratch) || (backward && !aligned16(lin)))
+      (backward && !aligned16(lin)))
     return (int)cudaErrorInvalidValue;
-  return hscan_wide_launch(cost, lin, out, out_int32, backward, h, w, D, p1,
-                           p2, scratch, stream);
+  if (D <= kLaneMax)
+    return hscan_wide_launch<16>(cost, lin, out, out_int32, backward, h, w, D,
+                                 p1, p2, stream);
+  return hscan_wide_launch<kChunked>(cost, lin, out, out_int32, backward, h,
+                                     w, D, p1, p2, stream);
 }
 
 int sgm_rowsweep_wide(const int16_t* cost, const void* acc, int acc_int32,
                       void* out, int out_int32, int h, int w, int D, int dy,
-                      int dx, int p1, int p2, int* scratch,
-                      cudaStream_t stream) {
+                      int dx, int p1, int p2, cudaStream_t stream) {
   if ((dy != 1 && dy != -1) || dx < -1 || dx > 1 || D < 16 || D % 16 != 0 ||
-      !aligned16(cost) || !aligned16(acc) || !aligned16(out) ||
-      !aligned16(scratch))
+      !aligned16(cost) || !aligned16(acc) || !aligned16(out))
     return (int)cudaErrorInvalidValue;
-  if (acc_int32)
-    return rowsweep_wide_launch_in<int32_t>(cost, acc, out, out_int32, h, w,
-                                            D, dy, dx, p1, p2, scratch,
-                                            stream);
-  return rowsweep_wide_launch_in<int16_t>(cost, acc, out, out_int32, h, w, D,
-                                          dy, dx, p1, p2, scratch, stream);
+  if (D <= kLaneMax)
+    return rowsweep_wide_launch<16>(cost, acc, acc_int32, out, out_int32, h,
+                                    w, D, dy, dx, p1, p2, stream);
+  return rowsweep_wide_launch<kChunked>(cost, acc, acc_int32, out, out_int32,
+                                        h, w, D, dy, dx, p1, p2, stream);
 }
 
 }  // extern "C"

@@ -46,8 +46,8 @@ _SIGNATURES = {
     "sgm_census_cost_volume": [_P] * 3 + [_I] * 5 + [_P],
     "sgm_hscan": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "sgm_rowsweep": [_P, _P, _I, _P, _I] + [_I] * 7 + [_P],
-    "sgm_hscan_wide": [_P, _P, _P] + [_I] * 7 + [_P, _P],
-    "sgm_rowsweep_wide": [_P, _P, _I, _P, _I] + [_I] * 7 + [_P, _P],
+    "sgm_hscan_wide": [_P, _P, _P] + [_I] * 7 + [_P],
+    "sgm_rowsweep_wide": [_P, _P, _I, _P, _I] + [_I] * 7 + [_P],
     "remap_bilinear": [_P] * 4 + [_I] * 3 + [_P],
 }
 

@@ -15,9 +15,12 @@ compose these as the TPU matcher does (pallas_sgm.py:739-755); shapes
 past the int16 bounds raise NotImplementedError (check_supported), and
 pipeline.raw_disparity sends them down the float32 route instead, as the
 JAX package does. Above 256 disparities K2 and K3 launch their wide
-variants (one warp a line walking D in chunks of 256, the carry in a
-scratch row), counted under their own names (hscan_wide,
-rowsweep_wide[_diag][_up]); K1 tiles D on its grid at any size.
+variants (one warp a line, the carry on the SM: 16 disparities a lane in
+registers up to 512, in the warp's shared memory in chunks of 256 above;
+loads through a ring filled by bulk copies) up to the shared-memory
+ceiling of wide_fits, counted under their own names
+(hscan_wide, rowsweep_wide[_diag][_up]); K1 tiles D on its grid at any
+size.
 
 Each wrapper takes a tensor on the CPU through its plain version (the
 same function in plain torch ops) and launches its kernel for a tensor on
@@ -43,12 +46,20 @@ from .cuda_build import (CALLS, LAUNCHES, called as _called, check as _check,
 __all__ = [
     "LAUNCHES", "CALLS", "reset_launches", "kernels_supported", "check_supported",
     "cost_volume", "hscan", "hscan_launch", "rowsweep", "cost_volume_plain", "hscan_plain",
-    "rowsweep_plain", "sgm_disparity", "sgm_disparity_plain",
+    "rowsweep_plain", "sgm_disparity", "sgm_disparity_plain", "wide_fits",
 ]
 
 # K2/K3 give each of a warp's 32 lanes at most 8 disparities; above this
 # they launch their wide variants.
 _NARROW_DISP = 256
+
+# A wide launch's shared memory a warp (csrc/sgm_kernels.cu, wide_warps):
+# _WIDE_RING stages (kWideRing) of one step of C and of one streamed
+# operand in acc's type (K2's int16 L, K3's partial sum), the carry's two
+# buffers of D + 16 int32, and an 8-byte mbarrier a stage. A block of one
+# warp must fit in _WIDE_BLOCK_SMEM (kMaxBlockSmem, sm_90's 227 KB).
+_WIDE_RING = 3
+_WIDE_BLOCK_SMEM = 232448
 
 # The row sweeps of each path count, as (dxs, reverse) per K3 pass
 # (pallas_sgm.py:741-755): downward vertical, then for 4 paths upward
@@ -101,13 +112,28 @@ def _final_dtype(cfg) -> torch.dtype:
     return torch.int32
 
 
+def wide_fits(d, acc_dtype) -> bool:
+    """True when the wide K2 and K3 launch at d disparities with partial
+    sums in acc_dtype: one warp's ring and shared-memory carry (above 512
+    disparities) fit in a block's shared memory. Exactly the kernels' own
+    test, which refuses the launch otherwise: D up to 11,600 with int16
+    sums, 8,928 with int32 (K3's ring holds the sum; K2's holds the int16
+    L). Up to 512 the carry is in registers and every launch fits."""
+    acc = max(2, torch.empty((), dtype=acc_dtype).element_size())
+    per_warp = _WIDE_RING * (d * (2 + acc) + 8) + 8 * (d + 16)
+    return per_warp <= _WIDE_BLOCK_SMEM
+
+
 def kernels_supported(cfg, shape) -> bool:
     """True when the kernels' storage types and launch shapes hold cfg at
     an (h, w) image: the conditions of pallas_sgm.pallas_supported (its
-    pad-lane cost is below _ldir_bound), at any num_disp."""
+    pad-lane cost is below _ldir_bound), and above 256 disparities
+    wide_fits (a ceiling pallas_supported does not have)."""
     if cfg.cost not in ("bt", "census"):
         return False
     if _ldir_bound(cfg) >= 32600:
+        return False
+    if _wide(cfg.num_disp) and not wide_fits(cfg.num_disp, _acc_dtype(cfg)):
         return False
     h, w = shape
     return w > cfg.num_disp + cfg.min_disp and h >= cfg.block_size
@@ -121,7 +147,7 @@ def check_supported(cfg, shape) -> None:
             f"num_disp={cfg.num_disp}, min_disp={cfg.min_disp}, "
             f"block_size={cfg.block_size}, prefilter_cap={cfg.prefilter_cap} "
             f"on a {shape[0]}x{shape[1]} image is outside the kernels' "
-            "int16 bounds or launch shapes"
+            "int16 bounds, launch shapes or shared memory"
         )
 
 
@@ -177,12 +203,6 @@ def _wide(d) -> bool:
     return d > _NARROW_DISP
 
 
-def _scratch(lines, d, device) -> torch.Tensor:
-    """A wide scan's carry rows: 2 * (d + 16) int32 a line (the kernels'
-    wide_cells), overwritten by the launch."""
-    return torch.empty(lines * 2 * (d + 16), dtype=torch.int32, device=device)
-
-
 def _hscan_name(d) -> str:
     """LAUNCHES key of K2: hscan, or hscan_wide above 256 disparities."""
     return "hscan_wide" if _wide(d) else "hscan"
@@ -212,11 +232,8 @@ def hscan_launch(cost: torch.Tensor, l_lr, out: torch.Tensor, cfg) -> None:
     args = (cost.data_ptr(), None if l_lr is None else l_lr.data_ptr(), out.data_ptr(),
             int(out.dtype == torch.int32), int(l_lr is not None), h, w, d, cfg.p1, cfg.p2)
     lib = load_library()
-    if _wide(d):
-        err = lib.sgm_hscan_wide(*args, _scratch(h, d, cost.device).data_ptr(), _stream())
-    else:
-        err = lib.sgm_hscan(*args, _stream())
-    _launched(_hscan_name(d), err)
+    fn = lib.sgm_hscan_wide if _wide(d) else lib.sgm_hscan
+    _launched(_hscan_name(d), fn(*args, _stream()))
 
 
 def _rowsweep_name(dxs, reverse, d) -> str:
@@ -243,7 +260,9 @@ def rowsweep(cost: torch.Tensor, acc: torch.Tensor, cfg, dxs, reverse: bool,
     """K3: acc + the row-direction sweeps (dy = -1 if reverse else +1, one
     per dx in dxs) over int16 C, stored in out_dtype (the TPU signature,
     pallas_sgm.py:658). One launch per direction, each adding its L to the
-    partial sum, which every launch stores in out_dtype.
+    partial sum, which every launch stores in out_dtype; above 256
+    disparities through the wide variant (no scratch: the carry stays on
+    the SM).
 
     That is exact. Every per-direction L is >= 0: C >= 0, and the min(...)
     of the recurrence is >= min L', so L >= C. With acc >= 0 every partial
@@ -269,13 +288,8 @@ def rowsweep(cost: torch.Tensor, acc: torch.Tensor, cfg, dxs, reverse: bool,
         args = (cost.data_ptr(), acc.data_ptr(), int(acc.dtype == torch.int32),
                 out.data_ptr(), int(out_dtype == torch.int32), h, w, d,
                 -1 if reverse else 1, dx, cfg.p1, cfg.p2)
-        if _wide(d):
-            lines = w if dx == 0 else w + h - 1
-            err = lib.sgm_rowsweep_wide(*args, _scratch(lines, d, cost.device).data_ptr(),
-                                        _stream())
-        else:
-            err = lib.sgm_rowsweep(*args, _stream())
-        _launched(name, err)
+        fn = lib.sgm_rowsweep_wide if _wide(d) else lib.sgm_rowsweep
+        _launched(name, fn(*args, _stream()))
         acc = out
     _called(name)
     return acc

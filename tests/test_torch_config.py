@@ -212,3 +212,51 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_c_signatures_match_sources():
+    """cuda_build binds every C function of csrc/*.cu with its argument
+    types (a pointer or the stream as c_void_p, an int as c_int); a
+    mismatch would pass pointers as ints, or drop an argument, on the
+    card."""
+    import ctypes
+    import re
+
+    from depthestimation_torch.ops import cuda_build
+
+    found = {}
+    for src in sorted(cuda_build._CSRC.glob("*.cu")):
+        block = src.read_text().split('extern "C" {', 1)[1]
+        for name, params in re.findall(r"^int (\w+)\(([^)]*)\)\s*\{", block, re.M):
+            found[name] = [ctypes.c_void_p if "*" in p or "cudaStream_t" in p
+                           else ctypes.c_int for p in params.split(",")]
+    assert found == cuda_build._SIGNATURES
+
+
+def test_wide_ceiling():
+    """Above 256 disparities the kernels hold a config only where one
+    warp's ring and carry fit in a block's shared memory (cuda_sgm.
+    wide_fits, the kernels' own test): up to 11,600 disparities with int16
+    sums, 8,928 with int32; past it kernels_supported is False, so
+    raw_disparity takes the float32 route. The constants it mirrors are the
+    kernel source's."""
+    import re
+
+    from depthestimation_torch.ops import cuda_build
+
+    src = (cuda_build._CSRC / "sgm_kernels.cu").read_text()
+    assert re.findall(r"constexpr int kWideRing = (\d+);", src) == [str(cuda_sgm._WIDE_RING)]
+    assert re.findall(r"constexpr size_t kMaxBlockSmem = (\d+);", src) == [
+        str(cuda_sgm._WIDE_BLOCK_SMEM)]
+    assert re.findall(r"constexpr int kWidePad = (\d+);", src) == ["8"]
+    for kw, top, acc in ((dict(), 11600, torch.int16), (dict(block_size=11), 8928, torch.int32)):
+        for d in (top, top + 16):
+            cfg = config.SGMConfig(num_disp=d, **kw)
+            assert cuda_sgm._acc_dtype(cfg) == acc
+            shape = (cfg.block_size, d + cfg.min_disp + 1)
+            assert cuda_sgm.kernels_supported(cfg, shape) is (d == top)
+            assert cuda_sgm.wide_fits(d, acc) is (d == top)
+        with pytest.raises(NotImplementedError, match="shared memory"):
+            cuda_sgm.check_supported(config.SGMConfig(num_disp=top + 16, **kw),
+                                     (cfg.block_size, top + 32))
+    assert cuda_sgm.wide_fits(1024, torch.int32)

@@ -23,8 +23,11 @@ pytestmark = pytest.mark.cuda
 # size 5, 32 at 1), 64 columns and 64 disparities, so the cases below also
 # take H under one strip and one row past it, W under one tile, and D of
 # 16 (one d-block, 2 of its 8 warps busy) and 256 (four d-blocks). Above
-# 256, K2 and K3 launch their wide variants: D = 272 (a last chunk of 16,
-# one lane in two busy), 512 (two whole chunks) and 1024 (four).
+# 256, K2 and K3 launch their wide variants, whose carry stays on the SM:
+# 16 disparities a lane in registers up to 512 (D = 272, 17 lanes live;
+# 512, all 32, int32 sums at block size 11), then in shared memory, 8 a
+# lane in chunks of 256 (528: the first D past the registers, two whole
+# chunks and 16; 1024: four).
 CASES = [
     (24, 100, dict(num_disp=16)),
     (37, 150, dict(num_disp=48, min_disp=3)),
@@ -45,6 +48,8 @@ CASES = [
     (18, 530, dict(num_disp=512, block_size=3, min_disp=4)),
     (9, 1040, dict(num_disp=1024, block_size=1)),
     (30, 290, dict(num_disp=272, block_size=11)),
+    (21, 530, dict(num_disp=512, block_size=11)),
+    (13, 545, dict(num_disp=528, block_size=3)),
 ]
 
 
@@ -144,8 +149,16 @@ def test_rowsweep_variants_match_plain(card, h, w, kw, dxs, reverse):
 # to 1, 2, 4, 8): W under one K2 stage (5 at D=16, 7 at D=128) and not a
 # multiple of it (45, 13, 70); H much larger than W and W much larger than
 # H for the diagonals; D 16 and 256; int32 acc and out at block sizes 11
-# and 13; the wide variants at D 272, 512 and 1024 (one warp a line in
-# chunks of 256), with W and H of 1 to 40.
+# and 13. The wide variants: 16 disparities a lane in registers up to 512,
+# a K2 stage of 2 columns and a K3 stage of 1 pixel; above 512 the carry
+# in shared memory in chunks of 256, a stage of one step; a ring of 3
+# stages. W of 1 and 2 (a row shorter than one K2 stage or the ring, every
+# K3 line 1 or 2 pixels) at D 288 and 1040, odd W at 288, 400 and 528
+# (37 and 21: a last K2 stage of one column); each side of the switch to
+# the wide variants (256 above, 272) and of the one from registers to
+# shared memory (512, 528); int32 sums at D 400 (registers) and 528
+# (shared memory); D 1024 and 1040 (four whole chunks, and 16 more); W and
+# H of 1 to 40.
 SCAN_CASES = [
     (1, 5, dict(num_disp=16)),
     (3, 45, dict(num_disp=16, block_size=3)),
@@ -161,6 +174,13 @@ SCAN_CASES = [
     (5, 9, dict(num_disp=512, block_size=3)),
     (2, 7, dict(num_disp=1024)),
     (1, 1, dict(num_disp=1024, block_size=13, prefilter_cap=15)),
+    (2, 1, dict(num_disp=288)),
+    (7, 37, dict(num_disp=288)),
+    (11, 3, dict(num_disp=512, block_size=3)),
+    (6, 13, dict(num_disp=528)),
+    (9, 21, dict(num_disp=400, block_size=11)),
+    (5, 11, dict(num_disp=528, block_size=13, prefilter_cap=15)),
+    (3, 2, dict(num_disp=1040)),
 ]
 
 
@@ -182,6 +202,29 @@ def test_scans_geometry_match_plain(card, h, w, kw):
     s5 = cuda_sgm.rowsweep(c, swe, cfg, (0, 1, -1), False, acc_dt)
     got = cuda_sgm.rowsweep(c, s5, cfg, (0, -1, 1), True, final_dt)
     assert_same(got, cuda_sgm.rowsweep_plain(c, s5, cfg, (0, -1, 1), True, final_dt))
+
+
+# The wide kernels' shared-memory ceiling (cuda_sgm.wide_fits): at the
+# largest D it allows, K2 and K3 launch and equal their plain versions;
+# 16 more and a launch is refused (K2's with int16 sums, K3's with int32).
+@pytest.mark.parametrize("kw,top", [(dict(), 11600), (dict(block_size=11), 8928)])
+def test_wide_ceiling_matches_wide_fits(card, kw, top):
+    for d, fits in ((top, True), (top + 16, False)):
+        cfg = SGMConfig(num_disp=d, **kw)
+        acc_dt = cuda_sgm._acc_dtype(cfg)
+        assert cuda_sgm.wide_fits(d, acc_dt) is fits
+        rng = np.random.default_rng(d)
+        c = torch.tensor(rng.integers(0, cuda_sgm._cmax(cfg) + 1, (2, 3, d))
+                         .astype(np.int16), device=card)
+        if not fits:
+            with pytest.raises(RuntimeError, match="_wide kernel launch failed"):
+                swe = cuda_sgm.hscan(c, cfg)
+                cuda_sgm.rowsweep(c, swe, cfg, (0,), False, acc_dt)
+            continue
+        swe = cuda_sgm.hscan(c, cfg)
+        assert_same(swe, cuda_sgm.hscan_plain(c, cfg))
+        got = cuda_sgm.rowsweep(c, swe, cfg, (0, 1, -1), False, acc_dt)
+        assert_same(got, cuda_sgm.rowsweep_plain(c, swe, cfg, (0, 1, -1), False, acc_dt))
 
 
 # w % 4 != 0 (13x103, 7x129, 9x6) takes the kernel's scalar form.
@@ -297,9 +340,13 @@ def test_wrapper_checks(card):
     img = torch.zeros((8, 64), device=card)
     with pytest.raises(ValueError, match="shape"):
         remap.remap_bilinear(img, img, torch.zeros((8, 63), device=card))
-    # Shapes K1 does not take are refused by the kernel, not computed. No
-    # num_disp is left to refuse: K1 tiles D on its grid (up to 65535 * 64
-    # disparities) and K2/K3 take any multiple of 16 above 256 through
-    # their wide variants.
+    # Shapes K1 does not take are refused by the kernel, not computed. K1
+    # tiles D on its grid (up to 65535 * 64 disparities); K2/K3 take any
+    # multiple of 16 above 256 through their wide variants until one
+    # warp's ring and carry no longer fit in a block's shared memory, and
+    # refuse the launch there.
     with pytest.raises(RuntimeError, match="CUDA error"):
         cuda_sgm.cost_volume(img, img, SGMConfig(block_size=19, prefilter_cap=1))
+    with pytest.raises(RuntimeError, match="hscan_wide kernel launch failed"):
+        cuda_sgm.hscan(torch.zeros((1, 1, 32768), dtype=torch.int16, device=card),
+                       SGMConfig(num_disp=32768))
