@@ -1,6 +1,6 @@
 """Drive the PyTorch port's paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py [--trace-dir DIR]
+    python3 chip_smoke.py [--trace-dir DIR] [--tensor-parallel]
 
 Phases (any failure exits non-zero and prints no result):
   1. device: the card's name and power limit; build the CUDA kernels from
@@ -68,20 +68,33 @@ Phases (any failure exits non-zero and prints no result):
         rank, mesh (1, 1, 1): `small` (seeded, Depth-Anything-V2-Small's
         widths) on seeded 4x518x518x3 images and targets in [0.5, 2];
         one make_train_step against the plain step on the CPU with TF32
-        off (TRAIN_TOL); 5 steps with finite, falling losses; ms per step
-        (events and host clock), images/s, peak memory, the step's kernel
-        count and host enqueue ms;
+        off (TRAIN_TOL); TRAIN_STEPS steps through the step's CUDA graph,
+        each against an eager step (step.eager) from the same copied
+        state, TF32 off: every step's loss, gradients and weights at
+        TRAIN_TOL, AdamW capturable with its step count on the card
+        reading TRAIN_STEPS after the replays; TRAIN_STEPS steps with
+        finite, falling losses; the graph's first-use numbers; ms per
+        step (events and host clock), images/s, peak memory, the step's
+        kernel count, host enqueue ms and the card's idle share, graphed
+        and eager side by side;
      g. the parallel layer (parallel/shard.py) on that mesh: batch_pipeline
         over 4 of phase 3's integer 1080p pairs (sgbm_3way, BT, fast mode),
-        driven with the counts set to 0 just before and read just after,
-        which must be exactly K1 1, K2 1 call / 2 launches, K3 1 a frame,
-        each frame equal bit for bit to raw_disparity +
-        postprocess_and_depth; disp_sharded_sgm equal bit for bit to the
-        kernels' matcher; the tile function at 4 tiles with DEFAULT_HALO
-        run tile by tile against the whole image (hh4; mismatch at the
-        seams and overall < 0.5 %); predict_sharded equal to the net's
-        forward; with several GPUs, batch_pipeline and disp_sharded_sgm
-        again with one process per GPU;
+        its first call (eager, then the capture of its CUDA graph) and a
+        replay, each driven with the counts set to 0 just before and read
+        just after, which must be exactly K1 1, K2 1 call / 2 launches,
+        K3 1 a frame, every frame equal bit for bit to raw_disparity +
+        postprocess_and_depth and the replay to run.eager; ms per batch,
+        host enqueue, kernel ms and idle share, eager against graphed;
+        disp_sharded_sgm equal bit for bit to the kernels' matcher; the
+        tile function at 4 tiles with DEFAULT_HALO run tile by tile
+        against the whole image (hh4; mismatch at the seams and overall
+        < 0.5 %); predict_sharded equal to the net's forward, a replay
+        within MONO_GRAPH_TOL of its eager run, both timed; with several
+        GPUs, batch_pipeline and disp_sharded_sgm again with one process
+        per GPU, and the frames' rows over every GPU (the halo exchange
+        and the gather in the graph), replays equal to eager; with four,
+        the tensor-parallel check, its graphed steps and predict held to
+        eager on every rank;
      h. the user-facing surface: a synthetic 2964x1988 pair (a scene of
         ndisp 330, its nearest plane at 264 px) written as PNG with its
         calib.txt (examples/example_stereo.py's rig, ndisp 280) and decoded
@@ -881,12 +894,31 @@ def _train_data():
     return images, targets
 
 
+def _step_times(fn, cycles_per_ms):
+    """One train step's times, fn() enqueuing it (the card keeps
+    training): events, host clock, images/s, the profiler's kernels and
+    the host's enqueue ms and the card's idle share (host_device_split)."""
+    split = host_device_split(fn, cycles_per_ms)
+    wall = host_ms(lambda: float(fn()), runs=5)
+    return {"events_ms": split["device_events_ms"], "host_clock_ms": wall,
+            "images_per_s_events": TRAIN_BATCH * 1e3 / split["device_events_ms"],
+            "images_per_s_host_clock": TRAIN_BATCH * 1e3 / wall,
+            "kernels": split["kernels"], "kernel_ms": split["kernel_ms"],
+            "kernel_ms_by_class": split["kernel_ms_by_class"],
+            "host_enqueue_ms": split["host_ms"],
+            "card_idle_share": split["card_idle_share"],
+            "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+            "matmul_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
 def _train_run(net, mesh, images, targets, cycles_per_ms):
     """TRAIN_STEPS make_train_step steps from `net` on `mesh` at
-    PyTorch's TF32 defaults (finite, falling losses), the peak memory
-    allocated from the train state's creation on, and one step's times
-    (events, host clock, profiler split). Every rank of the mesh calls it
-    alike. Returns the numbers."""
+    PyTorch's TF32 defaults (finite, falling losses; the first call runs
+    the step and captures its CUDA graph, the others replay it), the peak
+    memory allocated from the train state's creation on, the graph's
+    first-use numbers, and one step's times graphed ("step") and eager
+    ("step_eager", step.eager on the same state). Every rank of the mesh
+    calls it alike. Returns the numbers."""
     from depthestimation_torch.models import train
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -898,23 +930,80 @@ def _train_run(net, mesh, images, targets, cycles_per_ms):
                                                             TRAIN_LR, seed=None)
     step = train.make_train_step(local, opt, mesh, shardings)
     losses = [float(step(xc, tc)) for _ in range(TRAIN_STEPS)]
-    out = {"losses": losses, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    (entry,) = step.graph_cache.values()
+    out = {"losses": losses, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "graph": dict(_graph_numbers(entry), replays=entry.replays)}
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"train: losses {losses} not finite and falling")
+    if entry.replays != TRAIN_STEPS - 1:
+        raise AssertionError(f"train: {entry.replays} replays in {TRAIN_STEPS} steps")
 
-    # -- times of one step (the card keeps training) --
-    split = host_device_split(lambda: step(xc, tc), cycles_per_ms)
-    wall = host_ms(lambda: float(step(xc, tc)), runs=5)
-    out["step"] = {"events_ms": split["device_events_ms"], "host_clock_ms": wall,
-                   "images_per_s_events": TRAIN_BATCH * 1e3 / split["device_events_ms"],
-                   "images_per_s_host_clock": TRAIN_BATCH * 1e3 / wall,
-                   "kernels": split["kernels"], "kernel_ms": split["kernel_ms"],
-                   "kernel_ms_by_class": split["kernel_ms_by_class"],
-                   "host_enqueue_ms": split["host_ms"],
-                   "card_idle_share": split["card_idle_share"],
-                   "cudnn_tf32": torch.backends.cudnn.allow_tf32,
-                   "matmul_tf32": torch.backends.cuda.matmul.allow_tf32}
-    del local, opt, step, xc, tc
+    out["step"] = _step_times(lambda: step(xc, tc), cycles_per_ms)
+    out["step_eager"] = _step_times(lambda: step.eager(xc, tc), cycles_per_ms)
+    del local, opt, step, entry, xc, tc
+    torch.cuda.empty_cache()
+    return out
+
+
+def _copy_train_state(dst, src):
+    """Copy one train state's (net, optimizer) weights and AdamW state
+    into another's tensors, in place."""
+    (dst_net, dst_opt), (src_net, src_opt) = dst, src
+    with torch.no_grad():
+        for pd, ps in zip(dst_net.parameters(), src_net.parameters()):
+            pd.copy_(ps)
+            for k, v in src_opt.state[ps].items():
+                dst_opt.state[pd][k].copy_(v)
+
+
+def _graphed_vs_eager(net, mesh, images, targets):
+    """TRAIN_STEPS steps through make_train_step's CUDA graph (the first
+    runs the step and captures it, the others replay), each against an
+    eager step (step.eager) of a second train state into which the
+    graphed state (weights, AdamW moments and step count) was copied just
+    before, TF32 off: every step's loss, gradients and weights held at
+    TRAIN_TOL (_step_errors, the worst over the steps). Two runs that
+    only start from the same weights drift apart over the steps (atomics
+    reorder float sums, and Adam moves a weight by about lr whatever its
+    gradient's size), so each step is held from one state. The
+    capturable AdamW's step count, on the card, must read TRAIN_STEPS
+    after the replays: a count frozen at the capture would give every
+    replay the first step's bias correction, which the held weights
+    would show. Returns the numbers; every rank of the mesh calls it
+    alike."""
+    from depthestimation_torch.models import train
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    graphed, eager = (train.make_sharded_train_state(net, mesh, images.shape[1:3], TRAIN_LR,
+                                                     seed=None) for _ in range(2))
+    step = train.make_train_step(graphed[0], graphed[1], mesh, graphed[2])
+    eager_step = train.make_train_step(eager[0], eager[1], mesh, eager[2]).eager
+    out = {"steps": TRAIN_STEPS, "losses_graphed": [], "losses_eager": [],
+           "loss_rel_err": 0.0, "grad_rel_err": 0.0, "weight_err_firm": 0.0,
+           "weight_err_all": 0.0}
+    for k in range(TRAIN_STEPS):
+        if k:
+            _copy_train_state(eager[:2], graphed[:2])
+        out["losses_graphed"].append(float(step(images, targets)))
+        out["losses_eager"].append(float(eager_step(images, targets)))
+        errs = _step_errors({n: (p.grad, p.detach()) for n, p in graphed[0].named_parameters()},
+                            dict(eager[0].named_parameters()))
+        errs["loss_rel_err"] = (abs(out["losses_graphed"][-1] - out["losses_eager"][-1])
+                                / abs(out["losses_eager"][-1]))
+        out.update({key: max(out[key], v) for key, v in errs.items()})
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    (entry,) = step.graph_cache.values()
+    opt = graphed[1]
+    counts = sorted({float(st["step"]) for st in opt.state.values()})
+    out.update(replays=entry.replays, adam_step_counts=counts,
+               adam_steps_on_card=all(st["step"].is_cuda for st in opt.state.values()),
+               capturable=opt.defaults["capturable"], tolerance=TRAIN_TOL,
+               head_out_bias=TRAIN_OUT_BIAS)
+    out["held"] = bool(_step_held(out) and out["capturable"] and out["adam_steps_on_card"]
+                       and out["replays"] == TRAIN_STEPS - 1
+                       and counts == [float(TRAIN_STEPS)])
+    del graphed, eager, step, eager_step, entry, opt
     torch.cuda.empty_cache()
     return out
 
@@ -953,13 +1042,21 @@ def phase_train(cycles_per_ms, smi):
     result["card_vs_cpu_seeded_init"] = _train_step_card_vs_cpu(net, mesh, images, targets)
     log(f"[3f] one step at the seeded init (reported, not held): "
         f"{result['card_vs_cpu_seeded_init']}")
+
+    # -- TRAIN_STEPS graphed steps against as many eager ones, TF32 off --
+    result["graphed_vs_eager"] = _graphed_vs_eager(lifted, mesh, images, targets)
+    log(f"[3f] {TRAIN_STEPS} graphed steps vs eager, TF32 off: {result['graphed_vs_eager']}")
+    if not result["graphed_vs_eager"]["held"]:
+        raise AssertionError("train: the graphed steps differ from the eager ones")
     del lifted
 
     # -- TRAIN_STEPS steps from the seeded weights, PyTorch's defaults --
     result.update(_train_run(net, mesh, images, targets, cycles_per_ms))
     log(f"[3f] {TRAIN_STEPS} steps: losses {result['losses']}; peak memory "
         f"{result['max_memory_allocated_bytes'] / 2**30:.2f} GiB")
-    log(f"[3f] one step: {result['step']}")
+    log(f"[3f] the step's graph: {result['graph']}")
+    log(f"[3f] one step, graphed: {result['step']}")
+    log(f"[3f] one step, eager: {result['step_eager']}")
     return mesh, result
 
 
@@ -976,10 +1073,12 @@ def _frames(n, dev):
 
 
 def _check_batch_and_disp(mesh_batch, mesh_lanes, lb, rb, tag):
-    """batch_pipeline on this rank's frames, each frame equal bit for bit
-    to raw_disparity + postprocess_and_depth and launching K1 1, K2 1/2,
-    K3 1; disp_sharded_sgm on frame 0 equal to the kernels' matcher.
-    Returns (counts, disp_sharded_sgm ms)."""
+    """batch_pipeline on this rank's frames: its first call (the eager
+    warm-up, then the capture of its CUDA graph) and a replay, each
+    launching K1 1, K2 1/2, K3 1 a frame, every frame of both equal bit
+    for bit to raw_disparity + postprocess_and_depth, the replay equal to
+    run.eager; disp_sharded_sgm on frame 0 equal to the kernels' matcher.
+    Returns (counts, disp_sharded_sgm ms, the batch_pipeline function)."""
     from depthestimation_torch import SGMConfig
     from depthestimation_torch.ops import cuda_sgm
     from depthestimation_torch.parallel import shard
@@ -987,19 +1086,30 @@ def _check_batch_and_disp(mesh_batch, mesh_lanes, lb, rb, tag):
 
     cfg = SGMConfig(num_disp=D, focal_length=1000.0, baseline=0.1)
     run = shard.batch_pipeline(mesh_batch, cfg, fast_mode=True)
-    cuda_sgm.reset_launches()
-    disp, depth = run(lb, rb)
-    torch.cuda.synchronize()
     n = lb.shape[0]
-    counts = counted()
     expected = {"cost_volume": (n, n), "hscan": (n, 2 * n), "rowsweep": (n, n)}
-    log(f"[3g] {tag} batch_pipeline, {n} frames: (calls, launches) {counts}")
-    if counts != expected:
-        raise AssertionError(f"{tag} batch_pipeline made {counts}, expected {expected}")
+    outs = []
+    for call in ("first call", "replay"):
+        cuda_sgm.reset_launches()
+        outs.append(run(lb, rb))
+        torch.cuda.synchronize()
+        counts = counted()
+        log(f"[3g] {tag} batch_pipeline, {n} frames, {call}: (calls, launches) {counts}")
+        if counts != expected:
+            raise AssertionError(f"{tag} batch_pipeline's {call} made {counts}, "
+                                 f"expected {expected}")
+    (entry,) = run.graph_cache.values()
+    eager = run.eager(lb, rb)
+    if entry.replays != 1 or not all(torch.equal(a, b) for a, b in zip(outs[1], eager)):
+        raise AssertionError(f"{tag} batch_pipeline: the replay ({entry.replays}) differs "
+                             "from run.eager")
     for i in range(n):
         want = postprocess_and_depth(raw_disparity(lb[i], rb[i], cfg), cfg, fast_mode=True)
-        if not (torch.equal(disp[i], want[0]) and torch.equal(depth[i], want[1])):
-            raise AssertionError(f"{tag} batch_pipeline frame {i} differs from the single pair")
+        for call, (disp, depth) in zip(("first call", "replay"), outs):
+            if not (torch.equal(disp[i], want[0]) and torch.equal(depth[i], want[1])):
+                raise AssertionError(f"{tag} batch_pipeline's {call}, frame {i}, differs "
+                                     "from the single pair")
+    del outs, eager
     ns = SGMConfig(num_disp=D, speckle_window_size=0)
     fn = shard.disp_sharded_sgm(mesh_lanes, ns)
     t0 = time.perf_counter()
@@ -1008,23 +1118,62 @@ def _check_batch_and_disp(mesh_batch, mesh_lanes, lb, rb, tag):
     sgm_ms = (time.perf_counter() - t0) * 1e3
     if not torch.equal(got, raw_disparity(lb[0], rb[0], ns)):
         raise AssertionError(f"{tag} disp_sharded_sgm differs from the kernels' matcher")
-    log(f"[3g] {tag}: every frame == raw_disparity + postprocess_and_depth (bit for bit); "
+    log(f"[3g] {tag}: every frame of the first call and of a replay == raw_disparity + "
+        f"postprocess_and_depth (bit for bit), the replay == run.eager; "
         f"disp_sharded_sgm == the kernels' matcher (bit for bit), {sgm_ms:.1f} ms")
-    return counts, sgm_ms
+    return counts, sgm_ms, run
+
+
+def _check_tiles(mesh_tiles, lb, rb, tag):
+    """batch_pipeline with each frame's rows over the mesh's 'tile' axis
+    (halo exchange by NCCL send and receive, the tiles all-gathered): its
+    first call (eager, then the capture) and a replay equal bit for bit
+    to run.eager on every rank."""
+    from depthestimation_torch import SGMConfig
+    from depthestimation_torch.parallel import shard
+
+    cfg = SGMConfig(num_disp=D, focal_length=1000.0, baseline=0.1)
+    run = shard.batch_pipeline(mesh_tiles, cfg, fast_mode=True)
+    outs = [run(lb, rb) for _ in range(2)]
+    eager = run.eager(lb, rb)
+    (entry,) = run.graph_cache.values()
+    for call, out in zip(("first call", "replay"), outs):
+        if not all(torch.equal(a, b) for a, b in zip(out, eager)):
+            raise AssertionError(f"{tag} tiled batch_pipeline's {call} differs from run.eager")
+    if entry.replays != 1:
+        raise AssertionError(f"{tag} tiled batch_pipeline: {entry.replays} replays")
+    log(f"[3g] {tag}: tiled batch_pipeline, first call and replay == run.eager (bit for bit)")
 
 
 def _multi_gpu_rank(rank, world, port):
-    """One rank of the one-process-per-GPU check (torch.multiprocessing)."""
-    import torch.distributed as dist
-
-    from depthestimation_torch.parallel.mesh import initialize_distributed, make_mesh
+    """One rank of the one-process-per-GPU check (torch.multiprocessing):
+    _check_batch_and_disp on the rank's own frame, then the same frames'
+    rows over every GPU (_check_tiles)."""
+    from depthestimation_torch.parallel.mesh import (destroy_process_group,
+                                                     initialize_distributed, make_mesh)
 
     initialize_distributed(f"localhost:{port}", world, rank)
     dev = torch.device("cuda", rank)
     lb, rb = _frames(world, dev)
+    tag = f"rank {rank}/{world}"
     _check_batch_and_disp(make_mesh((world, 1, 1)), make_mesh((1, 1, world)),
-                          lb[rank:rank + 1], rb[rank:rank + 1], f"rank {rank}/{world}")
-    dist.destroy_process_group()
+                          lb[rank:rank + 1], rb[rank:rank + 1], tag)
+    _check_tiles(make_mesh((1, world, 1)), lb[:2], rb[:2], tag)
+    destroy_process_group()
+
+
+def _spawn_multi_gpu(world):
+    """_multi_gpu_rank in one process per GPU."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    mp.spawn(_multi_gpu_rank, args=(world, port), nprocs=world, join=True)
+    log(f"[3g] {world} processes, one per GPU: batch_pipeline (graphed and eager), "
+        "disp_sharded_sgm and the tiled batch_pipeline checks passed on every rank")
 
 
 # predict_sharded at (1, 1, 4) against the single forward, both float32
@@ -1054,7 +1203,8 @@ def _tensor_parallel_rank(rank, world, port, cycles_per_ms, out_path):
 
     from depthestimation_torch.models import train
     from depthestimation_torch.models.mono import MonoDepthModel
-    from depthestimation_torch.parallel.mesh import initialize_distributed, make_mesh
+    from depthestimation_torch.parallel.mesh import (destroy_process_group,
+                                                     initialize_distributed, make_mesh)
 
     initialize_distributed(f"localhost:{port}", world, rank)
     dev = torch.device("cuda", rank)
@@ -1088,8 +1238,13 @@ def _tensor_parallel_rank(rank, world, port, cycles_per_ms, out_path):
     dist.broadcast(first, src=dist.get_global_rank(model_group, 0), group=model_group)
     out["replicas_equal"] = bool(torch.equal(first, replicated))
     del local, opt, replicated, first
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
 
-    # -- predict_sharded against the single forward --
+    # -- TRAIN_STEPS graphed steps against as many eager ones at this mesh --
+    out["graphed_vs_eager"] = _graphed_vs_eager(lifted, mesh, images, targets)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+
+    # -- predict_sharded against the single forward; a replay against eager --
     model = MonoDepthModel.create("small", seed=0, device=dev)
     x = torch.rand(2, 518, 518, 3, generator=torch.Generator().manual_seed(1))
     got = model.predict_sharded(x, mesh)
@@ -1097,6 +1252,7 @@ def _tensor_parallel_rank(rank, world, port, cycles_per_ms, out_path):
         want = model.net(x.to(dev)).cpu().numpy()
     out["predict_sharded"] = {"batch": [2, 518, 518, 3],
                               "rel_err": float(np.abs(got - want).max() / np.abs(want).max())}
+    out["predict_sharded"].update(_predict_replay(model, mesh, x))
     del model
 
     if rank == 0:
@@ -1125,11 +1281,15 @@ def _tensor_parallel_rank(rank, world, port, cycles_per_ms, out_path):
                          "share_of_step_events_ms": gather_ms / step["events_ms"]}
     ranks = [None] * world
     dist.all_gather_object(ranks, (out["max_memory_allocated_bytes"], out["replicas_equal"],
-                                   out["predict_sharded"]["rel_err"]))
-    dist.destroy_process_group()
+                                   out["predict_sharded"]["rel_err"],
+                                   out["graphed_vs_eager"]["held"],
+                                   out["predict_sharded"]["replay_rel_err"]))
+    destroy_process_group()
     out["max_memory_allocated_bytes_per_rank"] = [r[0] for r in ranks]
     out["replicas_equal_per_rank"] = [r[1] for r in ranks]
     out["predict_sharded"]["rel_err_per_rank"] = [r[2] for r in ranks]
+    out["graphed_vs_eager_held_per_rank"] = [r[3] for r in ranks]
+    out["predict_sharded"]["replay_rel_err_per_rank"] = [r[4] for r in ranks]
     if rank == 0:
         with open(out_path, "w") as f:
             json.dump(out, f)
@@ -1166,13 +1326,33 @@ def phase_tensor_parallel(world, cycles_per_ms, one_rank):
         f"(one rank {one_rank['step']['host_clock_ms']:.2f}); peak bytes a rank "
         f"{out['max_memory_allocated_bytes_per_rank']} (one rank "
         f"{one_rank['max_memory_allocated_bytes']}); all-gather {out['all_gather']}")
+    log(f"[3g] tensor parallel: {TRAIN_STEPS} graphed steps vs eager on rank 0 "
+        f"{out['graphed_vs_eager']}, held on every rank {out['graphed_vs_eager_held_per_rank']}; "
+        f"graphed step {out['step']}; eager step {out['step_eager']}")
     held = out["vs_one_rank"]
     if not (out["heads_per_rank"] == out["heads"] and _step_held(held)
             and all(out["replicas_equal_per_rank"])
             and max(out["predict_sharded"]["rel_err_per_rank"]) <= TP_PREDICT_TOL):
         raise AssertionError("tensor parallel: the (1, 1, 4) step or predict_sharded "
                              "differs from one rank")
+    if not (all(out["graphed_vs_eager_held_per_rank"])
+            and max(out["predict_sharded"]["replay_rel_err_per_rank"]) <= MONO_GRAPH_TOL):
+        raise AssertionError("tensor parallel: a graphed step or predict differs from eager")
     return out
+
+
+def _predict_replay(model, mesh, x):
+    """After a first model.predict_sharded(x, mesh) (which captured the
+    graph): a second call with other images, a replay, against the
+    sharded predict's eager run on them, relative to its max."""
+    predict = model._graph_cache[("sharded", mesh, tuple(x.shape[1:]), "data")]
+    x2 = x.flip(0).contiguous()
+    got = model.predict_sharded(x2, mesh)
+    want = predict.eager(x2).cpu().numpy()
+    (entry,) = predict.graph_cache.values()
+    return {"replays": entry.replays,
+            "replay_rel_err": float(np.abs(got - want).max() / np.abs(want).max()),
+            **_graph_numbers(entry)}
 
 
 def phase_parallel(mesh, cycles_per_ms, train_numbers):
@@ -1181,8 +1361,6 @@ def phase_parallel(mesh, cycles_per_ms, train_numbers):
     two again with one process per GPU, and with four or more the
     tensor-parallel check (phase_tensor_parallel) against phase 3f's
     one-rank step. Returns the numbers to print."""
-    import socket
-
     from depthestimation_torch import SGMConfig
     from depthestimation_torch.models.mono import MonoDepthModel
     from depthestimation_torch.parallel import shard
@@ -1190,9 +1368,21 @@ def phase_parallel(mesh, cycles_per_ms, train_numbers):
 
     dev = torch.device("cuda")
     lb, rb = _frames(4, dev)
-    counts, sgm_ms = _check_batch_and_disp(mesh, mesh, lb, rb, "1 rank")
+    counts, sgm_ms, run = _check_batch_and_disp(mesh, mesh, lb, rb, "1 rank")
+    (entry,) = run.graph_cache.values()
     result = {"batch_pipeline_frames": 4, "batch_pipeline_counts": counts,
-              "disp_sharded_sgm_host_ms": sgm_ms}
+              "disp_sharded_sgm_host_ms": sgm_ms,
+              "batch_pipeline": {
+                  **_graph_numbers(entry),
+                  "eager": _split_numbers(host_device_split(lambda: run.eager(lb, rb),
+                                                            cycles_per_ms)),
+                  "graphed": _split_numbers(host_device_split(lambda: run(lb, rb),
+                                                              cycles_per_ms)),
+                  "eager_ms_per_batch": host_ms(lambda: run.eager(lb, rb)[0].cpu()),
+                  "graphed_ms_per_batch": host_ms(lambda: run(lb, rb)[0].cpu())}}
+    result["batch_pipeline"]["replays"] = entry.replays
+    log(f"[3g] batch_pipeline, 4 frames, eager vs graphed: {result['batch_pipeline']}")
+    del run, entry
 
     # -- 4 row tiles with DEFAULT_HALO, tile by tile, against the whole image --
     cfg = SGMConfig(num_disp=D, sgbm_mode="hh4", speckle_window_size=50)
@@ -1220,20 +1410,23 @@ def phase_parallel(mesh, cycles_per_ms, train_numbers):
     if not np.array_equal(got, want):
         raise AssertionError("predict_sharded differs from the net's forward")
     log("[3g] predict_sharded, 2x518x518, one rank == net(images) (bit for bit)")
-    result["predict_sharded"] = {"batch": [2, 518, 518, 3], "equal": True}
+    result["predict_sharded"] = {"batch": [2, 518, 518, 3], "equal": True,
+                                 **_predict_replay(model, mesh, x)}
+    predict = model._graph_cache[("sharded", mesh, (518, 518, 3), "data")]
+    xc = x.to(dev)
+    for how, fn in (("eager", predict.eager), ("graphed", predict)):
+        result["predict_sharded"][how] = _split_numbers(host_device_split(
+            lambda: fn(xc), cycles_per_ms))
+    log(f"[3g] predict_sharded: a replay vs the eager run {result['predict_sharded']}")
+    if result["predict_sharded"]["replay_rel_err"] > MONO_GRAPH_TOL:
+        raise AssertionError("predict_sharded: the replay differs from the eager run")
+    del model, predict
 
     # -- one process per GPU --
     world = 1 << (max(torch.cuda.device_count(), 1).bit_length() - 1)
     result["processes"] = world if world > 1 else None
     if world > 1:
-        import torch.multiprocessing as mp
-
-        with socket.socket() as s:
-            s.bind(("localhost", 0))
-            port = s.getsockname()[1]
-        mp.spawn(_multi_gpu_rank, args=(world, port), nprocs=world, join=True)
-        log(f"[3g] {world} processes, one per GPU: batch_pipeline and disp_sharded_sgm "
-            "checks passed on every rank")
+        _spawn_multi_gpu(world)
     result["tensor_parallel"] = (phase_tensor_parallel(world, cycles_per_ms, train_numbers)
                                  if world >= 4 else None)
     if world < 4:
@@ -1966,12 +2159,11 @@ def phase_graphs(pair, raw_pair, counts_of, cycles_per_ms, smi):
 
 
 def main_tensor_parallel() -> int:
-    """phase_tensor_parallel alone, against phase 3f's one-rank step
-    (_train_run at mesh (1, 1, 1) on GPU 0), on four GPUs or more."""
-    import torch.distributed as dist
-
+    """Phase 3g's checks with one process per GPU alone, on four GPUs or
+    more: _multi_gpu_rank's, then phase_tensor_parallel against phase
+    3f's one-rank step (_train_run at mesh (1, 1, 1) on GPU 0)."""
     from depthestimation_torch.models.mono import MonoDepthModel
-    from depthestimation_torch.parallel.mesh import make_mesh
+    from depthestimation_torch.parallel.mesh import destroy_process_group, make_mesh
     from depthestimation_torch.tools import profile_kernels
 
     world = 1 << (max(torch.cuda.device_count(), 1).bit_length() - 1)
@@ -1980,11 +2172,12 @@ def main_tensor_parallel() -> int:
     if world < 4:
         log(f"chip_smoke --tensor-parallel: needs four GPUs, found {world}")
         return 1
+    _spawn_multi_gpu(world)
     cycles_per_ms = profile_kernels.sleep_cycles_per_ms()
     mesh = make_mesh((1, 1, 1))
     net = MonoDepthModel.create("small", seed=0, image_size=TRAIN_HW, device="cpu").net
     one_rank = _train_run(net, mesh, *_train_data(), cycles_per_ms)
-    dist.destroy_process_group()
+    destroy_process_group()
     print(json.dumps({"tensor_parallel": phase_tensor_parallel(world, cycles_per_ms,
                                                                one_rank)}))
     print(smi)
@@ -1998,8 +2191,10 @@ def main() -> int:
     parser.add_argument("--trace-dir", default=None,
                         help="write phase 3d's profiler traces (Chrome JSON) here")
     parser.add_argument("--tensor-parallel", action="store_true",
-                        help="run only phase 3g's tensor-parallel check (four GPUs or "
-                             "more) against the one-rank step, and print its JSON line")
+                        help="run only phase 3g's checks with one process per GPU (four "
+                             "GPUs or more): batch_pipeline whole and in row tiles, then "
+                             "the tensor-parallel check against the one-rank step; print "
+                             "its JSON line")
     args = parser.parse_args()
     trace_dir = args.trace_dir
     if not torch.cuda.is_available():
@@ -2263,11 +2458,11 @@ def main() -> int:
     mono_numbers = phase_mono(cycles_per_ms, smi)
 
     # ---- 3f. the mono training step; 3g. the parallel layer ----
-    import torch.distributed as dist
+    from depthestimation_torch.parallel.mesh import destroy_process_group
 
     mesh, train_numbers = phase_train(cycles_per_ms, smi)
     parallel_numbers = phase_parallel(mesh, cycles_per_ms, train_numbers)
-    dist.destroy_process_group()
+    destroy_process_group()
 
     # ---- 3h. examples, tools and entry points on the card ----
     surface_numbers, middlebury = phase_surface(smi)

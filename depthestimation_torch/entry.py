@@ -175,13 +175,13 @@ def _body(n: int, device) -> dict:
 
 def _rank(rank: int, n: int, store: str, device: str) -> None:
     """One process of a dry run over n ranks (torch.multiprocessing)."""
-    from .parallel.mesh import initialize_distributed
+    from .parallel.mesh import destroy_process_group, initialize_distributed
 
     initialize_distributed(store, n, rank, device=device)
     try:
         _body(n, device)
     finally:
-        dist.destroy_process_group()
+        destroy_process_group()
 
 
 def dryrun(n: int, device="cuda") -> Optional[dict]:
@@ -196,8 +196,10 @@ def dryrun(n: int, device="cuda") -> Optional[dict]:
         try:
             return _body(1, device)
         finally:
-            if started and dist.is_initialized():
-                dist.destroy_process_group()
+            if started:
+                from .parallel.mesh import destroy_process_group
+
+                destroy_process_group()
     if device.type == "cuda" and torch.cuda.device_count() < n:
         raise RuntimeError(f"dryrun({n}) needs {n} GPUs, {torch.cuda.device_count()} visible")
     import torch.multiprocessing as mp

@@ -1,13 +1,16 @@
 """One callable captured as a CUDA graph and replayed.
 
 The counterpart of the JAX package's compiled-program caches (jax.jit per
-(config, shape) in depthestimation_tpu/pipeline.py, api.py and
-models/mono.py): a jitted function there runs a frame as one dispatch,
-and a CapturedCall here runs it as one graph launch instead of the
-thousands of kernel launches the eager PyTorch code makes. The caches
-that hold one CapturedCall per key live with their callers
-(StereoPipeline._graph_cache, StereoDepthEstimatorVideo._stats_cache,
-MonoDepthModel._graph_cache).
+(config, shape) in depthestimation_tpu/pipeline.py, api.py,
+models/mono.py, models/train.py and parallel/shard.py): a jitted function
+there runs a frame or a train step as one dispatch, and a CapturedCall
+here runs it as one graph launch instead of the thousands of kernel
+launches the eager PyTorch code makes. The caches that hold one
+CapturedCall per key live with their callers (StereoPipeline.
+_graph_cache, StereoDepthEstimatorVideo._stats_cache, MonoDepthModel.
+_graph_cache, and the graph_cache of the functions that
+models/train.make_train_step, make_sharded_predict and
+parallel/shard.batch_pipeline return); `cached` makes their entries.
 
 The first call warms up and captures:
 - it copies the tensor arguments into static input tensors;
@@ -29,6 +32,15 @@ A capture that fails (a host synchronisation, a pageable host-to-device
 copy, an allocation the capture refuses) raises RuntimeError; so does a
 replay. Nothing here runs the callable eagerly in place of a replay.
 
+A graph that captured NCCL collectives (the train step's, the sharded
+predict's, a tiled batch_pipeline's: made with collectives=True) holds
+that work of its communicators, and NCCL's teardown of a communicator
+waits until no graph holds its work: torch.distributed.
+destroy_process_group() with such a graph alive never returns.
+release_collective_graphs() drops every such graph that is still alive
+(a later call captures again); parallel/mesh.destroy_process_group()
+calls it before it ends the group, and so does the interpreter's exit.
+
 Launch counts: the kernel wrappers count while a graph is captured, though
 nothing runs then. The capture takes that change of cuda_build.LAUNCHES
 and CALLS back and adds it again on every replay, so the counts are the
@@ -37,15 +49,20 @@ launches the card ran.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import gc
 import time
+import weakref
 
 import torch
 
 from .ops import cuda_build
 
-__all__ = ["CapturedCall"]
+__all__ = ["CapturedCall", "cached", "release_collective_graphs", "tf32_flags"]
+
+# The CapturedCalls made with collectives=True that are still alive.
+_COLLECTIVE = weakref.WeakSet()
 
 
 @contextlib.contextmanager
@@ -59,6 +76,37 @@ def _cudnn_fixed():
         yield
     finally:
         torch.backends.cudnn.benchmark = prev
+
+
+def tf32_flags():
+    """cuDNN's and cuBLAS's TF32 switches, part of a key wherever a graph
+    holds convolutions or matrix products: a graph keeps the kernels its
+    capture chose."""
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+def cached(cache: dict, key, fn, name: str, device, collectives: bool = False):
+    """cache[key], made from fn on first use: a CapturedCall of fn on a
+    CUDA device, fn itself on any other (the CPU runs eagerly).
+    collectives: fn runs NCCL collectives (see release_collective_graphs)."""
+    entry = cache.get(key)
+    if entry is None:
+        entry = (CapturedCall(fn, name, collectives) if torch.device(device).type == "cuda"
+                 else fn)
+        cache[key] = entry
+    return entry
+
+
+def release_collective_graphs():
+    """Drop the graph of every live CapturedCall that captured NCCL
+    collectives (CapturedCall.release): NCCL's teardown of a communicator
+    (torch.distributed.destroy_process_group) waits until no graph holds
+    its work. Each call captures again if called again."""
+    for call in list(_COLLECTIVE):
+        call.release()
+
+
+atexit.register(release_collective_graphs)
 
 
 def _signature(tensors):
@@ -75,10 +123,12 @@ class CapturedCall:
     and static outputs); `replays` counts the replays.
     """
 
-    def __init__(self, fn, name: str):
+    def __init__(self, fn, name: str, collectives: bool = False):
         self.fn = fn
         self.name = name
         self.graph = None
+        if collectives:
+            _COLLECTIVE.add(self)
         self.replays = 0
         self.warmup_ms = self.capture_ms = self.instantiate_ms = None
         self.pool_bytes = None
@@ -101,6 +151,15 @@ class CapturedCall:
         cuda_build.add_counts(self._counts)
         self.replays += 1
         return self._result([None if t is None else t.clone() for t in self._outputs])
+
+    def release(self):
+        """Drop the graph, its pool and its static tensors once the card
+        has run what was enqueued; the next call captures again."""
+        if self.graph is not None:
+            torch.cuda.synchronize(self._inputs[0].device)
+            self.graph.reset()
+        self.graph = None
+        self._inputs = self._outputs = None
 
     def _result(self, outs):
         return tuple(outs) if self._tuple else outs[0]

@@ -288,11 +288,26 @@ def load_optax_adam_state(optimizer: torch.optim.Optimizer, net: torch.nn.Module
     """Carry optax's ScaleByAdamState (count, mu, nu; the first state of
     optax.adamw's chain) into a torch Adam/AdamW optimizer over the whole
     of `net`'s parameters: step = count, exp_avg = mu, exp_avg_sq = nu,
-    each moment laid out as from_flax_params lays out its parameter."""
+    each moment laid out as from_flax_params lays out its parameter.
+    Where a parameter already has that state, the values are copied into
+    its tensors, so a captured train step (make_train_step) keeps replaying
+    onto them."""
     moments = from_flax_params(mu), from_flax_params(nu)
+    # A capturable optimizer (the train step's on the card) keeps its step
+    # count on the parameters' device, as a CUDA graph's replay reads it.
+    capturable = optimizer.defaults.get("capturable", False)
     for name, p in net.named_parameters():
-        optimizer.state[p] = {
-            "step": torch.tensor(float(np.asarray(count))),
+        new = {
+            "step": torch.tensor(float(np.asarray(count)),
+                                 device=p.device if capturable else "cpu"),
             "exp_avg": moments[0][name].to(p.device),
             "exp_avg_sq": moments[1][name].to(p.device),
         }
+        old = optimizer.state.get(p, {})
+        if old.keys() == new.keys() and all(old[k].shape == v.shape and old[k].device == v.device
+                                            for k, v in new.items()):
+            with torch.no_grad():
+                for k, v in new.items():
+                    old[k].copy_(v)
+        else:
+            optimizer.state[p] = new

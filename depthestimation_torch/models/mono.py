@@ -24,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..graphs import CapturedCall
+from ..graphs import cached, tf32_flags
 from ..pipeline import _resolve_device
 from .dpt import DPTConfig, DPTHead
 from .vit import LayerScale, ViT, ViTConfig
@@ -220,7 +220,8 @@ class MonoDepthModel:
     net: MonoDepthNet
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
     # The net's forward per batch shape (JAX's _jit_cache, mono.py:164-176):
-    # a CUDA graph on the card, the net itself on the CPU.
+    # a CUDA graph on the card, the net itself on the CPU; and the sharded
+    # predicts (predict_sharded, mono.py:200-218), each with its own graphs.
     _graph_cache: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     @classmethod
@@ -312,13 +313,8 @@ class MonoDepthModel:
         """The net on a (B, H, W, 3) batch through the cache's entry for
         its shape and the TF32 flags (a graph keeps the kernels its
         capture chose)."""
-        key = (tuple(batch.shape), torch.backends.cudnn.allow_tf32,
-               torch.backends.cuda.matmul.allow_tf32)
-        fn = self._graph_cache.get(key)
-        if fn is None:
-            fn = CapturedCall(self.net, "MonoDepthNet") if self.device.type == "cuda" else self.net
-            self._graph_cache[key] = fn
-        return fn(batch)
+        key = (tuple(batch.shape), *tf32_flags())
+        return cached(self._graph_cache, key, self.net, "MonoDepthNet", self.device)(batch)
 
     @torch.inference_mode()
     def predict_async(self, image) -> torch.Tensor:
@@ -342,9 +338,17 @@ class MonoDepthModel:
         -> depth (B, H, W) numpy, the global result on every rank. The
         batch splits over `data_axis` and the weights over 'model', laid
         out as in the train step (models/train.py); with one 'model' rank
-        the model's own net runs. Numerics are predict()'s net."""
-        from .train import make_sharded_predict, param_shardings_for
+        the model's own net runs. Numerics are predict()'s net. The
+        sharded predict is kept in the cache under JAX's key ("sharded",
+        mesh, image shape; with data_axis), and on the card each batch
+        shape is one CUDA graph replay (make_sharded_predict)."""
+        from .train import _as_batch, make_sharded_predict, param_shardings_for
 
-        shardings = param_shardings_for(self.net, mesh)
-        predict = make_sharded_predict(self.net, mesh, shardings, data_axis)
+        images = _as_batch(images)
+        key = ("sharded", mesh, tuple(images.shape[1:]), data_axis)
+        predict = self._graph_cache.get(key)
+        if predict is None:
+            predict = make_sharded_predict(self.net, mesh, param_shardings_for(self.net, mesh),
+                                           data_axis)
+            self._graph_cache[key] = predict
         return predict(images).cpu().numpy()

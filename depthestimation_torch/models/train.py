@@ -33,7 +33,12 @@ and lets GSPMD insert the collectives; here the layout is written out:
   gradients are summed (not averaged) over 'data'.
 - AdamW with optax.adamw's defaults, passed explicitly: b1 0.9, b2 0.999,
   eps 1e-8, weight decay 1e-4 on every parameter (biases, LayerNorm and
-  LayerScale included), one param group.
+  LayerScale included), one param group; on the card capturable (its step
+  count on the device), as the step's CUDA graph needs.
+- JAX jits the train step and the sharded forward. On a CUDA mesh each is
+  one CUDA graph replay here (graphs.CapturedCall), captured on the first
+  call with a key and replayed by every later one; on the CPU (gloo) they
+  run eagerly.
 
 Loss: scale-invariant log loss (SiLog) with a validity mask.
 """
@@ -41,6 +46,7 @@ Loss: scale-invariant log loss (SiLog) with a validity mask.
 from __future__ import annotations
 
 import copy
+import warnings
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -49,6 +55,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..graphs import cached, tf32_flags
 from ..parallel.mesh import axis_info
 from .mono import MonoDepthNet, init_flax
 
@@ -320,21 +327,34 @@ def make_sharded_train_state(net: MonoDepthNet, mesh, image_hw,
     device, its weights drawn as MonoDepthModel.create draws them from
     `seed` (JAX inits from a seed too), or kept as `net` holds them for
     seed=None (a loaded checkpoint, JAX's weights). The optimizer is
-    AdamW with optax.adamw's defaults over its parameters."""
+    AdamW with optax.adamw's defaults over its parameters, capturable on a
+    CUDA mesh (the step count on the card, which make_train_step's graph
+    advances on every replay) and not on the CPU, which does not support
+    it."""
     shardings = param_shardings_for(net, mesh, image_hw)
     net = copy.deepcopy(net)
     if seed is not None:  # drawn on the CPU, so the weights do not depend on the device
         init_flax(net.cpu(), torch.Generator().manual_seed(seed))
     local = shard_net(net, mesh, shardings)
     optimizer = torch.optim.AdamW(local.parameters(), lr=learning_rate, betas=(0.9, 0.999),
-                                  eps=1e-8, weight_decay=1e-4)
+                                  eps=1e-8, weight_decay=1e-4,
+                                  capturable=_mesh_device(mesh).type == "cuda")
     return local, optimizer, shardings
 
 
-def _data_shard(x, index: int, size: int, device) -> torch.Tensor:
+def _as_batch(x) -> torch.Tensor:
+    """A global batch as a tensor: numpy as float32 (as JAX takes it)."""
+    return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x, np.float32))
+
+
+def _batch_key(*batches):
+    """The (shape, dtype) of each global batch: what jax.jit keys on."""
+    return tuple((tuple(x.shape), x.dtype) for x in batches)
+
+
+def _data_shard(x: torch.Tensor, index: int, size: int, device) -> torch.Tensor:
     """Rows [index * B/size, (index + 1) * B/size) of a global batch,
     as float32 on `device`."""
-    x = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x, np.float32))
     if x.shape[0] % size:
         raise ValueError(f"batch of {x.shape[0]} does not split over {size} data ranks")
     per = x.shape[0] // size
@@ -352,6 +372,17 @@ def _through_flat(tensors, collective) -> None:
         offset += t.numel()
 
 
+def _bound(optimizer, params):
+    """What a captured train step reads and writes in place: the address
+    of every parameter, gradient and optimizer state tensor, and each
+    param group's hyper-parameters."""
+    ptrs = tuple(t.data_ptr() for p in params
+                 for t in (p, p.grad, *optimizer.state.get(p, {}).values())
+                 if isinstance(t, torch.Tensor))
+    return ptrs, tuple(tuple(sorted((k, v) for k, v in g.items() if k != "params"))
+                       for g in optimizer.param_groups)
+
+
 def make_train_step(net: MonoDepthNet, optimizer, mesh, shardings):
     """The train step of make_sharded_train_state's (net, optimizer).
 
@@ -360,6 +391,25 @@ def make_train_step(net: MonoDepthNet, optimizer, mesh, shardings):
     shard; the step updates the rank's parameters in place and returns
     the global batch's loss, a 0-dim tensor on the mesh's device, without
     waiting for the card. Pixels with target > 0 are valid.
+
+    On a CUDA mesh the step is JAX's jitted train_step: one CUDA graph
+    replay a call. The first call with a key (the images' and targets'
+    (shape, dtype), the TF32 flags) runs the step eagerly, which is the
+    real step, and captures it: forward, SiLog with its all-reduce of the
+    count, backward with the tensor-parallel collectives, the gradients'
+    all-reduce over 'data' and broadcast over 'model', and AdamW's update
+    (capturable). Every later call copies its shards into the graph's
+    static inputs and replays. A capture that fails raises; nothing runs
+    the step eagerly in its place. A replay reads and writes the memory
+    its capture saw: where a parameter, gradient or optimizer state
+    tensor has moved since, or a param group's hyper-parameters changed
+    (optimizer.load_state_dict makes new state tensors, zero_grad() drops
+    the gradients, a scheduler sets a new lr), the call drops the graph
+    and captures again (_bound), as a first call; load_optax_adam_state
+    and copies into the tensors keep the graph. Do so on every rank alike.
+    `step.graph_cache` holds the entries, and `step.eager` runs the same
+    step without a graph (for comparisons). On a CPU mesh every call is
+    eager.
 
     With more than one 'model' rank, the replicated parameters' gradients
     are the first model rank's on every rank of its group: each rank
@@ -376,14 +426,14 @@ def make_train_step(net: MonoDepthNet, optimizer, mesh, shardings):
     params = list(net.parameters())
     replicated = [p for name, p in net.named_parameters() if shardings[name] is None]
 
-    def step(images, targets):
-        images = _data_shard(images, index, size, device)
-        targets = _data_shard(targets, index, size, device)
+    def local_step(images, targets):
+        """The step on this rank's shards: what the graph captures."""
         optimizer.zero_grad(set_to_none=False)
         loss = silog_loss(net(images), targets, targets > 0, group=group)
         loss.backward()
         for p in params:
-            # optax decays every leaf, one that got no gradient too.
+            # optax decays every leaf, one that got no gradient too. The
+            # first call fills them, so a capture finds every gradient.
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         if size > 1:
@@ -393,30 +443,83 @@ def make_train_step(net: MonoDepthNet, optimizer, mesh, shardings):
             src = dist.get_global_rank(model_group, 0)
             _through_flat([p.grad for p in replicated],
                           lambda flat: dist.broadcast(flat, src=src, group=model_group))
-        optimizer.step()
+        with warnings.catch_warnings():
+            # A capturable AdamW warns at a step outside a capture: the
+            # first call's is one by design, and step.eager's too.
+            warnings.filterwarnings("ignore", message="This instance was constructed with "
+                                    "capturable=True")
+            optimizer.step()
         return loss.detach()
 
+    def shards(images, targets):
+        return (_data_shard(images, index, size, device),
+                _data_shard(targets, index, size, device))
+
+    cache, bound = {}, {}
+
+    def step(images, targets):
+        images, targets = _as_batch(images), _as_batch(targets)
+        key = (*_batch_key(images, targets), *tf32_flags())
+        if key in bound and _bound(optimizer, params) != bound[key]:
+            del bound[key]
+            cache.pop(key).release()
+        loss = cached(cache, key, local_step, "train step", device,
+                      collectives=True)(*shards(images, targets))
+        if device.type == "cuda" and key not in bound:
+            bound[key] = _bound(optimizer, params)
+        return loss
+
+    step.graph_cache = cache
+    step.eager = lambda images, targets: local_step(*shards(_as_batch(images),
+                                                            _as_batch(targets)))
     return step
+
+
+def _versions(net: nn.Module):
+    return tuple(p._version for p in net.parameters())
 
 
 def make_sharded_predict(net: MonoDepthNet, mesh, param_shardings, data_axis: str = "data"):
     """Sharded inference: batch over `data_axis`, parameters laid out over
-    'model' as in the train step (a full net is sliced by shard_net once,
-    here). Returns predict(images (B, H, W, 3)) -> depth (B, H, W): every
-    rank passes the same global batch (numpy or tensor) and gets the
-    global result, gathered over `data_axis`, on the mesh's device."""
-    local = shard_net(net, mesh, param_shardings)
+    'model' as in the train step (a full net is sliced by shard_net here,
+    and again after its weights change in place: JAX passes its params to
+    every call). Returns predict(images (B, H, W, 3)) -> depth (B, H, W):
+    every rank passes the same global batch (numpy or tensor) and gets the
+    global result, gathered over `data_axis`, on the mesh's device.
+
+    On a CUDA mesh the local forward and the all-gather are JAX's jitted
+    apply: one CUDA graph replay a call, captured on the first call with a
+    key (the images' (shape, dtype), the TF32 flags), the first call's
+    result computed eagerly. `predict.graph_cache` holds the entries and
+    `predict.eager` runs without a graph. On the CPU every call is eager."""
     group, index, size = axis_info(mesh, data_axis)
     device = _mesh_device(mesh)
+    cache = {}
+    held = {"local": shard_net(net, mesh, param_shardings), "versions": _versions(net)}
 
-    def predict(images):
-        x = _data_shard(images, index, size, device)
+    def apply(x):
         with torch.no_grad():
-            out = local(x)
+            out = held["local"](x)
         if size == 1:
             return out
         parts = [torch.empty_like(out) for _ in range(size)]
         dist.all_gather(parts, out.contiguous(), group=group)
         return torch.cat(parts)
 
+    def fresh(images):
+        """This rank's shard, the slices taken again if the full net's
+        weights changed since (the graphs read the old slices' memory)."""
+        if held["local"] is not net and _versions(net) != held["versions"]:
+            held.update(local=shard_net(net, mesh, param_shardings), versions=_versions(net))
+            cache.clear()
+        return _data_shard(images, index, size, device)
+
+    def predict(images):
+        images = _as_batch(images)
+        x = fresh(images)
+        return cached(cache, (*_batch_key(images), *tf32_flags()), apply, "sharded predict",
+                      device, collectives=True)(x)
+
+    predict.graph_cache = cache
+    predict.eager = lambda images: apply(fresh(_as_batch(images)))
     return predict

@@ -15,6 +15,8 @@ a process group of data * tile * model ranks: torch.distributed with NCCL
 for tensors on the card (one rank per GPU), or gloo when the caller asks
 for the CPU. A mesh of one rank needs no launcher: make_mesh starts a
 one-rank group on an in-process store when none is running.
+destroy_process_group ends the group; it first drops the CUDA graphs
+that captured the group's collectives, which NCCL's teardown waits for.
 """
 
 from __future__ import annotations
@@ -26,9 +28,11 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from ..graphs import release_collective_graphs
 from ..pipeline import _resolve_device
 
-__all__ = ["make_mesh", "auto_mesh_shape", "initialize_distributed", "axis_info"]
+__all__ = ["make_mesh", "auto_mesh_shape", "initialize_distributed", "axis_info",
+           "destroy_process_group"]
 
 
 def _backend(device) -> str:
@@ -55,6 +59,19 @@ def initialize_distributed(coordinator: Optional[str] = None,
     url = coordinator if "://" in coordinator else f"tcp://{coordinator}"
     dist.init_process_group(backend, init_method=url, world_size=num_processes,
                             rank=process_id)
+
+
+def destroy_process_group():
+    """End the process group (torch.distributed.destroy_process_group)
+    and every subgroup of it. The CUDA graphs that captured its NCCL
+    collectives (graphs.release_collective_graphs: the train step's, the
+    sharded predict's, a tiled batch_pipeline's) are dropped first, held
+    by whatever function or model still keeps them: NCCL's teardown of a
+    communicator waits until no graph holds its work, so ending the group
+    with one alive never returns. A no-op without a group."""
+    release_collective_graphs()
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def auto_mesh_shape(n_devices: int, want_tile: bool = True) -> Tuple[int, int, int]:

@@ -19,7 +19,10 @@ JAX runs each of these as one program over the mesh (shard_map); here each
 rank is a process. JAX's collectives become torch.distributed's: ppermute
 a pair of batch_isend_irecv exchanges with the two neighbours along the
 axis, pmin an all_reduce(MIN), all_gather all_gather. The calling
-contracts are stated per function.
+contracts are stated per function. JAX jits batch_pipeline's function
+alone, and on a CUDA mesh it is one CUDA graph replay a call here
+(graphs.CapturedCall); the matchers, which JAX calls without jax.jit, run
+eagerly in both packages.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import SGMConfig
+from ..graphs import cached
 from ..ops import costs, sgm, wta
 from ..pipeline import postprocess_and_depth, raw_disparity
 from .mesh import axis_info
@@ -314,7 +318,16 @@ def batch_pipeline(mesh, cfg: SGMConfig, downscale_factor: float = 1.0,
     as in JAX's multi-process use. Frames run one after another (JAX's
     lax.map). With tiles, each rank runs its rows plus halo through the
     matcher and the post-processing, as JAX's shard_map does, and the
-    tiles are gathered."""
+    tiles are gathered.
+
+    On a CUDA mesh a call is JAX's jitted run: one CUDA graph replay,
+    captured on the first call with a key (cfg, the local batch's shape,
+    downscale_factor, fast_mode and the tile layout: tiles, this rank's
+    tile, halo) and holding every frame's kernels, post-filters and
+    depth, the halo exchange and the gather of the tiles. The first
+    call's result is computed eagerly; a capture that fails raises.
+    `run.graph_cache` holds the entries and `run.eager` runs without a
+    graph. On the CPU every call is eager."""
     del data_axis  # no collective crosses it
     use_tile = tile_axis is not None and tile_axis in mesh.mesh_dim_names
     group, index, n = axis_info(mesh, tile_axis) if use_tile else (None, 0, 1)
@@ -331,10 +344,19 @@ def batch_pipeline(mesh, cfg: SGMConfig, downscale_factor: float = 1.0,
         return (_gather_rows(disp, group, n),
                 None if depth is None else _gather_rows(depth, group, n))
 
-    def run(lb, rb):
+    def frames(lb, rb):
         out = [per_frame(l, r) for l, r in zip(lb, rb)]
         disp = torch.stack([d for d, _ in out])
         depth = None if out[0][1] is None else torch.stack([z for _, z in out])
         return disp, depth
 
+    cache = {}
+
+    def run(lb, rb):
+        key = (cfg, tuple(lb.shape), downscale_factor, fast_mode, (n, index, halo))
+        return cached(cache, key, frames, "batch_pipeline", mesh.device_type,
+                      collectives=n > 1)(lb, rb)
+
+    run.graph_cache = cache
+    run.eager = frames
     return run

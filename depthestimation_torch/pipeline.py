@@ -29,7 +29,7 @@ import torch
 
 from .calib import RectificationCache
 from .config import SGMConfig
-from .graphs import CapturedCall
+from .graphs import cached
 from .ops import color, costs, cuda_sgm, depth as depth_ops, filters, remap, sgm, wls, wta
 from .ops.cuda_build import called as _called
 
@@ -296,11 +296,7 @@ class StereoPipeline:
     def _entry(self, key, fn, name):
         """The cache's entry for key, made from fn on first use: a CUDA
         graph of fn on the card, fn itself on the CPU."""
-        entry = self._graph_cache.get(key)
-        if entry is None:
-            entry = CapturedCall(fn, name) if self.device.type == "cuda" else fn
-            self._graph_cache[key] = entry
-        return entry
+        return cached(self._graph_cache, key, fn, name, self.device)
 
     def _get_graphed(self, shape, temporal=False):
         """stereo_depth_fn on a rectified grayscale pair (and the previous

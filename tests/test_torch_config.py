@@ -15,6 +15,7 @@ from depthestimation_tpu import config as jconfig
 from depthestimation_tpu.ops import pallas_sgm
 from depthestimation_torch import config, StereoDepthEstimator, StereoPipeline
 from depthestimation_torch.ops import cuda_sgm
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -15,6 +15,7 @@ import depthestimation_torch as dt
 from depthestimation_torch import config, pipeline
 from depthestimation_torch.models import dpt, mono, vit
 from depthestimation_torch.ops import cuda_sgm
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 H, W, D = 24, 96, 16
 # A small rig for the rectified entry (the JAX bench's mild rig, scaled).

@@ -22,6 +22,7 @@ from depthestimation_torch import metrics, profiling, viz
 from depthestimation_torch.io import input as port_input, synthetic
 from depthestimation_torch.ops import color
 from depthestimation_torch.io.threaded import StereoInputPipeline
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 @pytest.mark.parametrize("what", ["pair", "stream"])

@@ -25,6 +25,7 @@ from depthestimation_tpu.ops import sgm as jsgm
 from depthestimation_tpu.ops import wta as jwta
 from depthestimation_torch import config, pipeline
 from depthestimation_torch.ops import costs, cuda_sgm
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 H, W, D, SHIFT = 40, 200, 32, 7
 

@@ -43,6 +43,7 @@ from depthestimation_tpu.models import vit as jvit
 import depthestimation_torch as dt
 from depthestimation_torch.models import convert, dpt, mono, vit
 from depthestimation_torch.ops import color
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(image_size=56, patch_size=14, hidden_size=64, num_layers=2,

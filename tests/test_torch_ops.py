@@ -24,6 +24,7 @@ from depthestimation_tpu.ops import wta as jwta
 from depthestimation_torch import config
 from depthestimation_torch.ops import (color, costs, cuda_sgm, depth, filters,
                                        sgm, wls, wta)
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 def make_pair(h, w, d_true=5, seed=0):

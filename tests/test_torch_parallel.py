@@ -34,6 +34,7 @@ from depthestimation_torch.parallel.mesh import axis_info, make_mesh
 from depthestimation_torch.pipeline import postprocess_and_depth, raw_disparity
 
 import gloo_launch
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 H, W = 32, 80
 LANES_HW = (16, 64)

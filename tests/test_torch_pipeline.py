@@ -14,6 +14,7 @@ from depthestimation_tpu import pipeline as jpipeline
 import depthestimation_torch as dtorch
 from depthestimation_torch import config, pipeline
 from depthestimation_torch.ops import cuda_sgm
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 H, W, D, SHIFT = 40, 200, 32, 9
 

@@ -37,6 +37,7 @@ from depthestimation_tpu.ops import remap as jremap
 import depthestimation_torch as dt
 from depthestimation_torch import calib, config
 from depthestimation_torch.ops import color, cuda_sgm, remap
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 H, W, D, SHIFT = 64, 240, 32, 6
 FX = 1000.0 * W / 1920  # the bench rig's field of view at this width

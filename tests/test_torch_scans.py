@@ -16,6 +16,7 @@ import torch
 from depthestimation_tpu.ops import sgm as jsgm
 from depthestimation_torch import config
 from depthestimation_torch.ops import cuda_sgm, sgm
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 # The K3 passes of the four modes, as (dxs, reverse).
 SWEEPS = [((0,), False), ((0,), True), ((0, 1, -1), False), ((0, -1, 1), True)]

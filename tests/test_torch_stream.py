@@ -24,6 +24,7 @@ import pytest
 import depthestimation_tpu as det
 import depthestimation_torch as dt
 from depthestimation_torch.io.synthetic import synthetic_stream
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 H, W, D = 32, 96, 16
 BASE = dict(num_disp=D, focal_length=500.0, baseline=0.1, speckle_window_size=0)

@@ -30,6 +30,7 @@ import depthestimation_torch as dt
 from depthestimation_torch import calib, entry
 from depthestimation_torch.io import png
 from depthestimation_torch.io.input import load_image
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 # The other surface files import these.
@@ -38,18 +39,6 @@ ASSETS = os.path.join(REPO, "assets", "stereo_pairs")
 # examples/example_stereo.py's defaults.
 MIDDLEBURY = dict(num_disp=280, focal_length=3997.684, baseline=193.001 / 1000.0,
                   doffs=131.111, sgbm_mode="sgbm_3way")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """These tests run many small torch ops; with the suite's workers
-    busy on every core, each op's team of threads waits for cores and a
-    test takes 10-100x its time alone. One thread each, restored after
-    the module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---- PNG --------------------------------------------------------------------

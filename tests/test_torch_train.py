@@ -55,6 +55,7 @@ from depthestimation_torch.parallel.mesh import make_mesh
 
 import gloo_launch
 from test_torch_mono import TINY, TINY_DPT, numpy_params, rel_err
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 LR = 1e-4
 LOSS_REL = 1e-5
@@ -120,6 +121,10 @@ out["model4:losses"] = torch.stack(losses)
 model = mono.MonoDepthModel(net=net.eval())
 out["pred"] = torch.from_numpy(model.predict_sharded(inp["images"], grid))
 out["model4:pred"] = torch.from_numpy(model.predict_sharded(inp["images"], grid4))
+# New weights loaded into the net: the cached sharded predict slices them again.
+with torch.no_grad():
+    net.head.head_out.bias.add_(0.5)
+out["pred_new_weights"] = torch.from_numpy(model.predict_sharded(inp["images"], grid))
 
 np.savez(f"{work}/rank{rank}.npz", **{k: v.numpy() for k, v in out.items()})
 dist.destroy_process_group()
@@ -209,10 +214,12 @@ def port_step(inputs, one_rank):
     _, params, images, targets = inputs
     net = port_net(convert.from_flax_params(params))
     local, opt, shardings = train.make_sharded_train_state(net, one_rank, HW, LR, seed=None)
-    loss = train.make_train_step(local, opt, one_rank, shardings)(images, targets)
+    step = train.make_train_step(local, opt, one_rank, shardings)
+    loss = step(images, targets)
     named = dict(local.named_parameters())
     return dict(loss=float(loss), grads={n: p.grad.clone() for n, p in named.items()},
-                weights={n: p.detach().clone() for n, p in named.items()})
+                weights={n: p.detach().clone() for n, p in named.items()},
+                capturable=opt.defaults["capturable"], entries=list(step.graph_cache.values()))
 
 
 def grad_errors(got, want):
@@ -258,7 +265,11 @@ def test_silog_loss_scale_invariance_and_empty_mask():
 
 
 def test_step0_loss_matches_jax(jax_steps, port_step):
+    """The step's loss; on a CPU mesh AdamW is not capturable (the card's
+    is, for the step's CUDA graph) and the step runs eagerly."""
     assert abs(port_step["loss"] - jax_steps["loss0"]) <= LOSS_REL * abs(jax_steps["loss0"])
+    assert port_step["capturable"] is False
+    assert [e.__name__ for e in port_step["entries"]] == ["local_step"]
 
 
 def test_gradients_match_jax(jax_steps, port_step):
@@ -275,12 +286,19 @@ def test_weights_after_one_step_match_jax(jax_steps, port_step):
 
 def test_second_step_from_carried_optax_state(inputs, jax_steps, one_rank):
     """JAX's weights and AdamW moments after step 1 carried into the port
-    (from_flax_params, load_optax_adam_state): step 2 against JAX's."""
+    (from_flax_params, load_optax_adam_state): step 2 against JAX's. A
+    second load copies into the state's tensors (a captured step replays
+    onto them) and overwrites what they held."""
     _, _, images, targets = inputs
     net = port_net(convert.from_flax_params(jax_steps["params1"]))
     local, opt, shardings = train.make_sharded_train_state(net, one_rank, HW, LR, seed=None)
     count, mu, nu = jax_steps["adam"]
     convert.load_optax_adam_state(opt, local, count, mu, nu)
+    held = [t for s in opt.state.values() for t in s.values()]
+    for t in held:
+        t.zero_()
+    convert.load_optax_adam_state(opt, local, count, mu, nu)
+    assert all(a is b for a, b in zip(held, (t for s in opt.state.values() for t in s.values())))
     loss = float(train.make_train_step(local, opt, one_rank, shardings)(images, targets))
     assert abs(loss - jax_steps["loss1"]) <= LOSS_REL * abs(jax_steps["loss1"])
     grads = {n: p.grad for n, p in local.named_parameters()}
@@ -342,13 +360,19 @@ def test_data2_model2_step_matches_one_rank(rank_out, port_step, what):
 
 def test_predict_sharded(inputs, rank_out, one_rank):
     """predict_sharded at data 2 x model 2 within 1e-5 of the net's own
-    forward; at one rank equal to it bit for bit."""
+    forward, also after new weights were loaded into the net (the cached
+    sharded predict takes its slices again); at one rank equal to it bit
+    for bit."""
     _, params, images, _ = inputs
     net = port_net(convert.from_flax_params(params)).eval()
+    new = port_net(convert.from_flax_params(params)).eval()
     with torch.no_grad():
         want = net(torch.from_numpy(images)).numpy()
+        new.head.head_out.bias.add_(0.5)
+        want_new = new(torch.from_numpy(images)).numpy()
     for r in range(4):
         assert rel_err(rank_out[r]["pred"], want) <= 1e-5
+        assert rel_err(rank_out[r]["pred_new_weights"], want_new) <= 1e-5
     got = mono.MonoDepthModel(net=net).predict_sharded(images, one_rank)
     np.testing.assert_array_equal(got, want)
 
