@@ -19,7 +19,8 @@ import torch
 import torch.distributed as dist
 
 from depthestimation_torch import entry
-from test_torch_surface import ASSETS, REPO, one_torch_thread  # noqa: F401 (a fixture)
+from test_torch_surface import ASSETS, REPO
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 _BLOCKED_SCRIPT = """

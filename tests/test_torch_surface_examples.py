@@ -23,7 +23,8 @@ from depthestimation_torch.examples import stereo, stereo_live
 from depthestimation_torch.io.input import _area_downscale_np
 from depthestimation_torch.io.synthetic import DEMO_CALIB, synthetic_stream, write_demo_assets
 from depthestimation_torch.pipeline import StereoPipeline
-from test_torch_surface import MIDDLEBURY, one_torch_thread  # noqa: F401 (a fixture)
+from test_torch_surface import MIDDLEBURY
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 @pytest.fixture(scope="module")

@@ -26,7 +26,8 @@ from depthestimation_torch.io.synthetic import synthesize_stereo_pair
 from depthestimation_torch.models.mono import MonoDepthModel
 from depthestimation_torch.tools import convert_hf_checkpoint, halo_sweep, profile_kernels
 from test_torch_mono import rel_err, tiny_hf  # noqa: F401 (a fixture)
-from test_torch_surface import ASSETS, one_torch_thread  # noqa: F401 (a fixture)
+from test_torch_surface import ASSETS
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 def test_convert_hf_checkpoint(tiny_hf, tmp_path, capsys):

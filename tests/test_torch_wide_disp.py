@@ -32,7 +32,8 @@ from depthestimation_torch.examples import stereo
 from depthestimation_torch.io import png
 from depthestimation_torch.io.synthetic import synthesize_stereo_pair
 from depthestimation_torch.ops import cuda_sgm, wta
-from test_torch_surface import MIDDLEBURY, one_torch_thread  # noqa: F401 (a fixture)
+from test_torch_surface import MIDDLEBURY
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 def shifted_pair(h, w, shift, seed):
