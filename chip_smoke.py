@@ -14,7 +14,9 @@ Phases (any failure exits non-zero and prints no result):
      variants (down, up, diagonals down, diagonals up, with the storage
      types of sgbm_3way, hh4 and hh), and the remap of both images of a
      pair through the mild rig's maps, beside torch's grid_sample as a
-     yardstick; above 256 disparities (WIDE_HOLDS: 64x400x272 and
+     yardstick; the speckle filter on the matcher's raw disparity (speckle
+     off) at a pair's two calls (window 50 on the map, window 100 on the
+     crop); above 256 disparities (WIDE_HOLDS: 64x400x272 and
      24x1100x1024), K1 BT and census, K2 and K3's four passes through
      their wide variants, bit exact;
   3. end to end through StereoDepthEstimator(device="cuda").estimate_
@@ -145,7 +147,8 @@ Phases (any failure exits non-zero and prints no result):
         passes == plain versions and timed, ms per pair;
         BT at block size 15 (past the int16 bounds) at 256x640x64 through
         the facade's graph: a replay equal to the eager functions, one
-        float32_route call and no launch a pair, card == CPU, and
+        float32_route call and no matcher launch a pair (the speckle
+        filter's two calls only), card == CPU, and
         ValueError above 1 << 26 cells on the card;
   4. one JSON line {"kernels": [...]}: per kernel the wrapper calls and
      kernel launches counted in phase 3 in one pair of the path named, ms
@@ -340,6 +343,14 @@ def counted():
 
     return {k: (cuda_sgm.CALLS[k], n)
             for k, n in cuda_sgm.LAUNCHES.items() if n or cuda_sgm.CALLS[k]}
+
+
+def speckle_counts(cfg, fast_mode, pairs=1):
+    """The speckle kernel's {"speckle": (calls, launches)} in `pairs` pairs
+    of a path: a call in the matcher where cfg.speckle_window_size > 0 and
+    one in the postprocess unless fast_mode, four launches each."""
+    calls = pairs * (int(cfg.speckle_window_size > 0) + int(not fast_mode))
+    return {"speckle": (calls, 4 * calls)} if calls else {}
 
 
 def drive(est, counts_of, path, expected):
@@ -580,7 +591,8 @@ def frame_split(vid, left, right, cycles_per_ms, tag, trace_dir):
 def phase_streaming(raw_pair, cycles_per_ms, trace_dir):
     """Streams A, B and C through StereoDepthEstimatorVideo; returns the
     numbers to print."""
-    from depthestimation_torch import StereoDepthEstimator, StereoDepthEstimatorVideo
+    from depthestimation_torch import (SGMConfig, StereoDepthEstimator,
+                                       StereoDepthEstimatorVideo)
     from depthestimation_torch.io.threaded import PairStager
     from depthestimation_torch.metrics import frame_metrics_from_stats
     from depthestimation_torch.pipeline import StereoPipeline
@@ -643,7 +655,8 @@ def phase_streaming(raw_pair, cycles_per_ms, trace_dir):
     frames_b = drifted(raw_pair, n_b)
     expect_b = {"remap": (n_b, n_b), "cost_volume": (n_b, n_b),
                 "hscan": (n_b, 2 * n_b), "rowsweep": (n_b, n_b),
-                "rowsweep_up": (n_b, n_b)}
+                "rowsweep_up": (n_b, n_b),
+                **speckle_counts(SGMConfig().updated(**rig), False, n_b)}
     out_b, sum_b = run_stream(frames_b, rig, expect_b, "B threaded",
                               use_threading=True)
     ref = StereoPipeline(device="cuda")
@@ -1087,7 +1100,8 @@ def _check_batch_and_disp(mesh_batch, mesh_lanes, lb, rb, tag):
     cfg = SGMConfig(num_disp=D, focal_length=1000.0, baseline=0.1)
     run = shard.batch_pipeline(mesh_batch, cfg, fast_mode=True)
     n = lb.shape[0]
-    expected = {"cost_volume": (n, n), "hscan": (n, 2 * n), "rowsweep": (n, n)}
+    expected = {"cost_volume": (n, n), "hscan": (n, 2 * n), "rowsweep": (n, n),
+                **speckle_counts(cfg, True, n)}
     outs = []
     for call in ("first call", "replay"):
         cuda_sgm.reset_launches()
@@ -1455,10 +1469,13 @@ def kernel_work(name, h, w, d, acc_bytes=2, out_bytes=2, dirs=1):
     XOR + popcount (2) plus the box sum; K2 two scan steps (9 each) plus
     the sum; K3 one scan step plus the sum per direction. Remap: both
     images and their maps read, both outputs written, ~17 operations a
-    pixel."""
+    pixel. Speckle (d unused): the (h, w) float32 map read once and
+    written once, ~10 operations a pixel (two edge tests and the verdict)."""
     n = h * w * d
     if name == "remap":
         return 2 * h * w * 4 * 4, 2 * h * w * 17
+    if name.startswith("speckle"):
+        return h * w * 4 * 2, h * w * 10
     if name.startswith("cost_volume"):
         return 2 * h * w * 4 + n * 2, n * (6 if name.endswith("census") else 14)
     if name.startswith("hscan"):
@@ -1632,7 +1649,8 @@ def phase_surface(smi):
         cfg = est.core.cfg
         d = cfg.num_disp
         expected = {"cost_volume": (1, 1), cuda_sgm._hscan_name(d): (1, 2),
-                    cuda_sgm._rowsweep_name((0,), False, d): (1, 1)}
+                    cuda_sgm._rowsweep_name((0,), False, d): (1, 1),
+                    **speckle_counts(cfg, est.core.fast_mode)}
         if calibrated:
             expected["remap"] = (1, 1)
         log(f"[3h] examples.stereo {tag}: (calls, launches) {counts}")
@@ -1691,7 +1709,8 @@ def phase_surface(smi):
     torch.cuda.synchronize()
     counts = counted()
     expected = {"cost_volume": (n_frames, n_frames), "hscan": (n_frames, 2 * n_frames),
-                "rowsweep": (n_frames, n_frames)}
+                "rowsweep": (n_frames, n_frames),
+                **speckle_counts(vid.core.cfg, vid.core.fast_mode, n_frames)}
     summary = vid.metrics.summary()
     if counts != expected or summary["frames"] != n_frames or summary["frames_failed"]:
         raise AssertionError(f"examples.stereo_live: {summary}, (calls, launches) {counts}")
@@ -1910,7 +1929,9 @@ def phase_wide(counts_of):
     disp, depth = est.estimate_depth()  # a replay
     torch.cuda.synchronize()
     launches, calls = dict(cuda_sgm.LAUNCHES), dict(cuda_sgm.CALLS)
-    if any(launches.values()) or calls["float32_route"] != 1 or entry.replays < 1:
+    speckle = speckle_counts(cfg, est.core.fast_mode)["speckle"]
+    if (any(n for k, n in launches.items() if k != "speckle") or calls["float32_route"] != 1
+            or (calls["speckle"], launches["speckle"]) != speckle or entry.replays < 1):
         raise AssertionError(f"float32 route replay: launches {launches}, calls {calls}")
     gl, gr = est.core.left_rectified, est.core.right_rectified
     want = pipeline.stereo_depth_fn(gl, gr, cfg)
@@ -2068,7 +2089,8 @@ def phase_graphs(pair, raw_pair, counts_of, cycles_per_ms, smi):
     for tag, kw, remap_ in ((f"middlebury_{h_full // 2}x{w_full // 2}x144", mid, False),
                             (f"middlebury_{h_full}x{w_full}x144", calib, True)):
         core = pipe(kw, False, downscale=0.5)
-        expected = {"cost_volume": (1, 1), "hscan": (1, 2), "rowsweep": (1, 1)}
+        expected = {"cost_volume": (1, 1), "hscan": (1, 2), "rowsweep": (1, 1),
+                    **speckle_counts(core.cfg, False)}
         if remap_:
             expected["remap"] = (1, 1)
         result["cells"][tag] = graph_cell(tag, core, *small, cycles_per_ms, expected)
@@ -2264,6 +2286,15 @@ def main() -> int:
         hold_exact(name, k3_out[name],
                    cuda_sgm.rowsweep_plain(c, acc, kcfg, dxs, rev, dt), errs)
     wide_errs = wide_holds(errs)
+    # The speckle filter on the matcher's raw disparity with speckle off:
+    # the matcher's call (window 50, new_val min_disp - 1, the whole map)
+    # and the postprocess's (window 100, new_val 0, the crop's strided view).
+    raw = pipeline.raw_disparity(gl, gr, cfg.updated(speckle_window_size=0))
+    speckle = {"speckle": (raw, float(cfg.min_disp - 1), cfg.speckle_window_size),
+               "speckle_post": (raw[:, D:], 0.0, 100)}
+    for name, (x, new_val, window) in speckle.items():
+        hold_exact(name, filters.filter_speckles(x, new_val, window, 1.0),
+                   filters.filter_speckles_plain(x, new_val, window, 1.0), errs)
     torch.cuda.synchronize()
 
     timed = {
@@ -2280,6 +2311,9 @@ def main() -> int:
         timed[name] = (
             lambda a=acc, k=kcfg, x=dxs, r=rev, t=dt: cuda_sgm.rowsweep(c, a, k, x, r, t),
             lambda a=acc, k=kcfg, x=dxs, r=rev, t=dt: cuda_sgm.rowsweep_plain(c, a, k, x, r, t))
+    for name, args in speckle.items():
+        timed[name] = (lambda a=args: filters.filter_speckles(*a, 1.0),
+                       lambda a=args: filters.filter_speckles_plain(*a, 1.0))
     ms, plain_ms = {}, {}
     for name, (kern, plain) in timed.items():
         ms[name] = time_ms(kern)
@@ -2305,7 +2339,9 @@ def main() -> int:
     for name, (acc, _, dxs, _, _) in k3.items():
         work[name] = kernel_work(name, H, W, D, acc.element_size(),
                                  k3_out[name].element_size(), len(dxs))
-    del k3, k3_out, cc
+    work["speckle"] = kernel_work("speckle", H, W, D)
+    work["speckle_post"] = kernel_work("speckle", H, W - D, D)
+    del k3, k3_out, cc, raw, speckle
 
     # ---- 3a. default path through the user's entry point ----
     counts_of = {}
@@ -2314,7 +2350,7 @@ def main() -> int:
     est.configure_sgbm(num_disp=D, focal_length=1000.0, baseline=0.1)
     disp, depth = drive(est, counts_of, "a default",
                         {"cost_volume": (1, 1), "hscan": (1, 2),
-                         "rowsweep": (1, 1)})
+                         "rowsweep": (1, 1), "speckle": (2, 8)})
     check_output(disp, depth, (H, W - D), "default")
     hit = float((np.abs(disp - SHIFT) <= 1.0).mean())
     log(f"[3a] known {SHIFT} px shift recovered on {hit:.4%} of pixels; "
@@ -2493,6 +2529,8 @@ def main() -> int:
          "c hh"),
         ("remap", "depthestimation_torch/csrc/remap_kernels.cu",
          "depthestimation_tpu/ops/remap.py:50", "b rectified"),
+        ("speckle", "depthestimation_torch/csrc/speckle_kernels.cu",
+         "none (plain XLA: depthestimation_tpu/ops/filters.py:117)", "a default"),
     ]
     kernels = []
     for name, source, replaces, path in kernel_rows:
@@ -2508,6 +2546,12 @@ def main() -> int:
             "library_ms": library.get(name),
         }
         row["loss_ms"] = row["calls"] * (row["ms"] - row["bound_ms"])
+        if name == "speckle":
+            # The pair's second call: the postprocess's, window 100 on the crop.
+            post = bound(*work["speckle_post"])[0]
+            row.update(ms_post=ms["speckle_post"], plain_ms_post=plain_ms["speckle_post"],
+                       bound_ms_post=post, max_abs_err_post=errs["speckle_post"])
+            row["loss_ms"] = row["ms"] - row["bound_ms"] + row["ms_post"] - post
         # Launches in phase 3g's batch_pipeline over 4 frames (its own path).
         row["launches_batch_pipeline"] = parallel_numbers["batch_pipeline_counts"].get(
             name, (0, 0))[1]

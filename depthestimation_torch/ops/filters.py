@@ -1,4 +1,4 @@
-"""Disparity post-processing filters (plain PyTorch).
+"""Disparity post-processing filters (plain PyTorch, and one CUDA kernel).
 
 Counterparts of depthestimation_tpu/ops/filters.py, i.e. of the
 reference's postprocess.py stages:
@@ -6,14 +6,20 @@ reference's postprocess.py stages:
 - median3x3:   cv2.medianBlur(..., 3) via a 9-element exchange network;
 - box_mean:    cv2.boxFilter k x k mean (reflect-101 borders);
 - detect_outliers: |d - mu| > k*sigma on valid (>0) pixels;
-- filter_speckles: cv2.filterSpeckles as min-label propagation plus a
-  gather-free BFS-tree size count (the algorithm and its exactness
-  argument are in the JAX module's docstring);
+- filter_speckles: cv2.filterSpeckles; on the card a union-find labelling
+  (csrc/speckle_kernels.cu), on the CPU filter_speckles_plain, min-label
+  propagation plus a gather-free BFS-tree size count (the algorithm and
+  its exactness argument are in the JAX module's docstring);
 - fill_holes:  push-pull pyramid + masked Jacobi ('inpaint'), or the
   bounded nearest-valid dilation ('nearest');
 - postprocess_disparity: the 4-step driver in reference order.
 
 The loops that are `fori_loop`s in JAX are Python loops here.
+
+filter_speckles takes a tensor on the CPU through filter_speckles_plain
+and launches the kernel for a tensor on the card, for every shape and
+window; it never falls back. Each call on the card adds its four launches
+to LAUNCHES["speckle"] and one to CALLS["speckle"] (cuda_build).
 """
 
 from __future__ import annotations
@@ -21,11 +27,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .cuda_build import (called as _called, check as _check,
+                         launched as _launched, load_library,
+                         on_card as _on_card, stream as _stream)
+
 __all__ = [
     "median3x3",
     "box_mean",
     "detect_outliers",
     "filter_speckles",
+    "filter_speckles_plain",
     "fill_holes",
     "postprocess_disparity",
 ]
@@ -101,7 +112,42 @@ def _nb(arr: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
     return out
 
 
+# Kernel launches in one call of csrc/speckle_kernels.cu's speckle_filter.
+_SPECKLE_LAUNCHES = 4
+
+
 def filter_speckles(
+    disparity: torch.Tensor,
+    new_val: float = 0.0,
+    max_speckle_size: int = 100,
+    max_diff: float = 1.0,
+) -> torch.Tensor:
+    """Remove small connected components from the (H, W) disparity map
+    (cv2.filterSpeckles): filter_speckles_plain's semantics, bit for bit.
+    On the card one call of the union-find kernel, whose labels and sizes
+    are two int32 (H, W) planes of scratch."""
+    if not _on_card(disparity):
+        return filter_speckles_plain(disparity, new_val, max_speckle_size, max_diff)
+    if disparity.ndim != 2:
+        raise ValueError(f"disparity must be (H, W), not {tuple(disparity.shape)}")
+    d = disparity.to(torch.float32).contiguous()
+    _check(d, "disparity", torch.float32, d.shape, disparity.device)
+    h, w = d.shape
+    if h * w >= 2**31:
+        raise ValueError(f"a {h}x{w} map has more pixels than int32 labels index")
+    out = torch.empty_like(d)
+    scratch = torch.empty((2, h, w), dtype=torch.int32, device=d.device)
+    # Component sizes never pass h * w, so clamping keeps every verdict.
+    max_size = min(max(int(max_speckle_size), -1), h * w)
+    _launched("speckle", load_library().speckle_filter(
+        d.data_ptr(), out.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
+        h, w, float(new_val), float(max_diff), max_size, _stream(),
+    ), _SPECKLE_LAUNCHES)
+    _called("speckle")
+    return out
+
+
+def filter_speckles_plain(
     disparity: torch.Tensor,
     new_val: float = 0.0,
     max_speckle_size: int = 100,

@@ -217,9 +217,9 @@ def test_port_imports_no_jax():
 
 def test_c_signatures_match_sources():
     """cuda_build binds every C function of csrc/*.cu with its argument
-    types (a pointer or the stream as c_void_p, an int as c_int); a
-    mismatch would pass pointers as ints, or drop an argument, on the
-    card."""
+    types (a pointer or the stream as c_void_p, a float as c_float, an int
+    as c_int); a mismatch would pass pointers as ints, or drop an argument,
+    on the card."""
     import ctypes
     import re
 
@@ -230,6 +230,7 @@ def test_c_signatures_match_sources():
         block = src.read_text().split('extern "C" {', 1)[1]
         for name, params in re.findall(r"^int (\w+)\(([^)]*)\)\s*\{", block, re.M):
             found[name] = [ctypes.c_void_p if "*" in p or "cudaStream_t" in p
+                           else ctypes.c_float if p.split()[0] == "float"
                            else ctypes.c_int for p in params.split(",")]
     assert found == cuda_build._SIGNATURES
 
