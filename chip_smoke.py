@@ -14,7 +14,9 @@ Phases (any failure exits non-zero and prints no result):
      variants (down, up, diagonals down, diagonals up, with the storage
      types of sgbm_3way, hh4 and hh), and the remap of both images of a
      pair through the mild rig's maps, beside torch's grid_sample as a
-     yardstick; the speckle filter on the matcher's raw disparity (speckle
+     yardstick; the WTA stage on the default's aggregated volume S (one
+     launch: argmin, uniqueness, subpixel and the LR check); the speckle
+     filter on the matcher's raw disparity (speckle
      off) at a pair's two calls (window 50 on the map, window 100 on the
      crop); above 256 disparities (WIDE_HOLDS: 64x400x272 and
      24x1100x1024), K1 BT and census, K2 and K3's four passes through
@@ -147,8 +149,9 @@ Phases (any failure exits non-zero and prints no result):
         passes == plain versions and timed, ms per pair;
         BT at block size 15 (past the int16 bounds) at 256x640x64 through
         the facade's graph: a replay equal to the eager functions, one
-        float32_route call and no matcher launch a pair (the speckle
-        filter's two calls only), card == CPU, and
+        float32_route call and no matcher launch a pair (the WTA kernel's
+        one launch and the speckle filter's two calls only), card == CPU,
+        and
         ValueError above 1 << 26 cells on the card;
   4. one JSON line {"kernels": [...]}: per kernel the wrapper calls and
      kernel launches counted in phase 3 in one pair of the path named, ms
@@ -345,12 +348,14 @@ def counted():
             for k, n in cuda_sgm.LAUNCHES.items() if n or cuda_sgm.CALLS[k]}
 
 
-def speckle_counts(cfg, fast_mode, pairs=1):
-    """The speckle kernel's {"speckle": (calls, launches)} in `pairs` pairs
-    of a path: a call in the matcher where cfg.speckle_window_size > 0 and
-    one in the postprocess unless fast_mode, four launches each."""
+def tail_counts(cfg, fast_mode, pairs=1):
+    """The {name: (calls, launches)} in `pairs` pairs of a path of the
+    kernels after K3: the WTA stage's one call of one launch a pair, and
+    the speckle filter's calls of four launches, one in the matcher where
+    cfg.speckle_window_size > 0 and one in the postprocess unless
+    fast_mode."""
     calls = pairs * (int(cfg.speckle_window_size > 0) + int(not fast_mode))
-    return {"speckle": (calls, 4 * calls)} if calls else {}
+    return {"wta": (pairs, pairs), **({"speckle": (calls, 4 * calls)} if calls else {})}
 
 
 def drive(est, counts_of, path, expected):
@@ -603,7 +608,8 @@ def phase_streaming(raw_pair, cycles_per_ms, trace_dir):
     n_a = 40
     frames_a = drifted(texture_pair(H, W, SHIFT, seed=0), n_a)
     expect_a = {"cost_volume": (n_a, n_a), "hscan": (n_a, 2 * n_a),
-                "rowsweep": (n_a, n_a), "rowsweep_up": (n_a, n_a)}
+                "rowsweep": (n_a, n_a), "rowsweep_up": (n_a, n_a),
+                **tail_counts(SGMConfig().updated(**STREAM_A), True, n_a)}
     kw_a = dict(fast_mode=True, depth_dtype="float16")
     out_a, sum_a = run_stream(frames_a, STREAM_A, expect_a, "A threaded",
                               use_threading=True, **kw_a)
@@ -656,7 +662,7 @@ def phase_streaming(raw_pair, cycles_per_ms, trace_dir):
     expect_b = {"remap": (n_b, n_b), "cost_volume": (n_b, n_b),
                 "hscan": (n_b, 2 * n_b), "rowsweep": (n_b, n_b),
                 "rowsweep_up": (n_b, n_b),
-                **speckle_counts(SGMConfig().updated(**rig), False, n_b)}
+                **tail_counts(SGMConfig().updated(**rig), False, n_b)}
     out_b, sum_b = run_stream(frames_b, rig, expect_b, "B threaded",
                               use_threading=True)
     ref = StereoPipeline(device="cuda")
@@ -1101,7 +1107,7 @@ def _check_batch_and_disp(mesh_batch, mesh_lanes, lb, rb, tag):
     run = shard.batch_pipeline(mesh_batch, cfg, fast_mode=True)
     n = lb.shape[0]
     expected = {"cost_volume": (n, n), "hscan": (n, 2 * n), "rowsweep": (n, n),
-                **speckle_counts(cfg, True, n)}
+                **tail_counts(cfg, True, n)}
     outs = []
     for call in ("first call", "replay"):
         cuda_sgm.reset_launches()
@@ -1470,7 +1476,10 @@ def kernel_work(name, h, w, d, acc_bytes=2, out_bytes=2, dirs=1):
     the sum; K3 one scan step plus the sum per direction. Remap: both
     images and their maps read, both outputs written, ~17 operations a
     pixel. Speckle (d unused): the (h, w) float32 map read once and
-    written once, ~10 operations a pixel (two edge tests and the verdict)."""
+    written once, ~10 operations a pixel (two edge tests and the verdict).
+    WTA: S read once (acc_bytes a value) and the float32 map written once,
+    ~6 operations a value (the key and its minimum, the competitor's mask
+    and minimum)."""
     n = h * w * d
     if name == "remap":
         return 2 * h * w * 4 * 4, 2 * h * w * 17
@@ -1480,6 +1489,8 @@ def kernel_work(name, h, w, d, acc_bytes=2, out_bytes=2, dirs=1):
         return 2 * h * w * 4 + n * 2, n * (6 if name.endswith("census") else 14)
     if name.startswith("hscan"):
         return n * (2 + acc_bytes), n * 19
+    if name == "wta":
+        return n * acc_bytes + h * w * 4, n * 6
     return n * (2 + acc_bytes + out_bytes), n * 10 * dirs
 
 
@@ -1518,7 +1529,8 @@ def _lr_shares(est, truth):
 
 def _middlebury_kernels(est, calibrated, errs_tag):
     """K1, K2, K3 (sgbm_3way's downward pass; above 256 disparities all
-    four K3 passes, k3_passes) and, calibrated, the remap on the example's
+    four K3 passes, k3_passes), the WTA stage on sgbm_3way's S and,
+    calibrated, the remap on the example's
     own pair at its shape: each equal to its plain version bit for bit,
     timed on the card (kernel and plain), with its bound. Drops the
     example's graphs first, and the facade's (their pools are GBs; a
@@ -1527,7 +1539,7 @@ def _middlebury_kernels(est, calibrated, errs_tag):
     import dataclasses
     import gc
 
-    from depthestimation_torch.ops import color, cuda_sgm, remap
+    from depthestimation_torch.ops import color, cuda_sgm, remap, wta
 
     core, cfg = est.core, est.core.cfg
     core._graph_cache.clear()
@@ -1567,7 +1579,13 @@ def _middlebury_kernels(est, calibrated, errs_tag):
         hold_and_time(name, lambda: cuda_sgm.rowsweep(c, a, kcfg, dxs, rev, dt),
                       lambda: cuda_sgm.rowsweep_plain(c, a, kcfg, dxs, rev, dt),
                       acc_bytes=a.element_size(), out_bytes=dt.itemsize, dirs=len(dxs))
-    del c, swe, passes
+    del passes
+    s = cuda_sgm.rowsweep(c, swe, cfg, (0,), False, cuda_sgm._final_dtype(cfg))
+    del c, swe
+    args = (cfg.min_disp, cfg.uniqueness_ratio, cfg.disp12_max_diff)
+    hold_and_time("wta", lambda: wta.wta_disparity(s, *args),
+                  lambda: wta.wta_disparity_plain(s, *args), acc_bytes=s.element_size())
+    del s
     if calibrated:
         # The pair as prepare_rectified hands it to the remap: grayscale of
         # the downscaled images, resized back to the calibration's size.
@@ -1650,7 +1668,7 @@ def phase_surface(smi):
         d = cfg.num_disp
         expected = {"cost_volume": (1, 1), cuda_sgm._hscan_name(d): (1, 2),
                     cuda_sgm._rowsweep_name((0,), False, d): (1, 1),
-                    **speckle_counts(cfg, est.core.fast_mode)}
+                    **tail_counts(cfg, est.core.fast_mode)}
         if calibrated:
             expected["remap"] = (1, 1)
         log(f"[3h] examples.stereo {tag}: (calls, launches) {counts}")
@@ -1710,7 +1728,7 @@ def phase_surface(smi):
     counts = counted()
     expected = {"cost_volume": (n_frames, n_frames), "hscan": (n_frames, 2 * n_frames),
                 "rowsweep": (n_frames, n_frames),
-                **speckle_counts(vid.core.cfg, vid.core.fast_mode, n_frames)}
+                **tail_counts(vid.core.cfg, vid.core.fast_mode, n_frames)}
     summary = vid.metrics.summary()
     if counts != expected or summary["frames"] != n_frames or summary["frames_failed"]:
         raise AssertionError(f"examples.stereo_live: {summary}, (calls, launches) {counts}")
@@ -1833,7 +1851,8 @@ def _switch_sides(counts_of):
                            speckle_window_size=0)
         est.core.fast_mode = True
         disp, depth = drive(est, counts_of, path, {"cost_volume": (1, 1), k2: (1, 2),
-                                                  down: (1, 3), up: (1, 3)})
+                                                  down: (1, 3), up: (1, 3),
+                                                  **tail_counts(est.core.cfg, True)})
         check_output(disp, depth, (H, W - d), path)
         hit = float((np.abs(disp - SHIFT) <= 1.0).mean())
         if hit < 0.95:
@@ -1877,7 +1896,8 @@ def phase_wide(counts_of):
     hh_8path_1080p_256d at D = 256 and 272 (_switch_sides). Then the float32 route (BT at
     block size 15, past the int16 bounds, D = 64 at 256x640): the facade's
     first call captures its graph, a replay equals the eager functions bit
-    for bit and counts one float32_route call and no launch, raw_disparity
+    for bit and counts one float32_route call and no matcher launch but the
+    WTA kernel's (and the speckle filter's), raw_disparity
     on the card equals the CPU's, and above 1 << 26 cells it raises
     ValueError before anything runs. Returns the numbers to print."""
     from depthestimation_torch import SGMConfig, StereoDepthEstimator
@@ -1889,9 +1909,11 @@ def phase_wide(counts_of):
     left_rgb, right_rgb = texture_pair(240, 720, shift, seed=5)
     for path, mode, expected in (
             ("j hh4 288", "hh4", {"cost_volume": (1, 1), "hscan_wide": (1, 2),
-                                  "rowsweep_wide": (1, 1), "rowsweep_wide_up": (1, 1)}),
+                                  "rowsweep_wide": (1, 1), "rowsweep_wide_up": (1, 1),
+                                  "wta": (1, 1)}),
             ("j hh 288", "hh", {"cost_volume": (1, 1), "hscan_wide": (1, 2),
-                                "rowsweep_wide_diag": (1, 3), "rowsweep_wide_diag_up": (1, 3)})):
+                                "rowsweep_wide_diag": (1, 3), "rowsweep_wide_diag_up": (1, 3),
+                                "wta": (1, 1)})):
         est = StereoDepthEstimator(device="cuda")
         est.left_source, est.right_source = left_rgb, right_rgb
         est.configure_sgbm(num_disp=d, focal_length=1000.0, baseline=0.1, sgbm_mode=mode,
@@ -1928,11 +1950,11 @@ def phase_wide(counts_of):
     cuda_sgm.reset_launches()
     disp, depth = est.estimate_depth()  # a replay
     torch.cuda.synchronize()
-    launches, calls = dict(cuda_sgm.LAUNCHES), dict(cuda_sgm.CALLS)
-    speckle = speckle_counts(cfg, est.core.fast_mode)["speckle"]
-    if (any(n for k, n in launches.items() if k != "speckle") or calls["float32_route"] != 1
-            or (calls["speckle"], launches["speckle"]) != speckle or entry.replays < 1):
-        raise AssertionError(f"float32 route replay: launches {launches}, calls {calls}")
+    counts = counted()
+    if (counts != tail_counts(cfg, est.core.fast_mode) or cuda_sgm.CALLS["float32_route"] != 1
+            or entry.replays < 1):
+        raise AssertionError(f"float32 route replay: (calls, launches) {counts}, "
+                             f"{cuda_sgm.CALLS['float32_route']} float32_route calls")
     gl, gr = est.core.left_rectified, est.core.right_rectified
     want = pipeline.stereo_depth_fn(gl, gr, cfg)
     if not (np.array_equal(disp, want[0].cpu().numpy())
@@ -1954,7 +1976,8 @@ def phase_wide(counts_of):
                                "first_call": _graph_numbers(entry),
                                "ms_per_pair": host_ms(est.estimate_depth, runs=3)}
     log(f"[3j] float32 route (BT block 15, 256x640x64): replay == eager (bit for bit), one "
-        "float32_route call and no launch a pair, card == CPU; 1024x1040x64 raised "
+        "float32_route call and no matcher launch but the WTA kernel's a pair, card == CPU; "
+        "1024x1040x64 raised "
         f"ValueError on the card; {result['float32_route']}")
     return result
 
@@ -2090,7 +2113,7 @@ def phase_graphs(pair, raw_pair, counts_of, cycles_per_ms, smi):
                             (f"middlebury_{h_full}x{w_full}x144", calib, True)):
         core = pipe(kw, False, downscale=0.5)
         expected = {"cost_volume": (1, 1), "hscan": (1, 2), "rowsweep": (1, 1),
-                    **speckle_counts(core.cfg, False)}
+                    **tail_counts(core.cfg, False)}
         if remap_:
             expected["remap"] = (1, 1)
         result["cells"][tag] = graph_cell(tag, core, *small, cycles_per_ms, expected)
@@ -2286,6 +2309,11 @@ def main() -> int:
         hold_exact(name, k3_out[name],
                    cuda_sgm.rowsweep_plain(c, acc, kcfg, dxs, rev, dt), errs)
     wide_errs = wide_holds(errs)
+    # The WTA stage on the default's S (sgbm_3way's final sum).
+    s_default = k3_out["rowsweep"]
+    wta_args = (cfg.min_disp, cfg.uniqueness_ratio, cfg.disp12_max_diff)
+    hold_exact("wta", wta.wta_disparity(s_default, *wta_args),
+               wta.wta_disparity_plain(s_default, *wta_args), errs)
     # The speckle filter on the matcher's raw disparity with speckle off:
     # the matcher's call (window 50, new_val min_disp - 1, the whole map)
     # and the postprocess's (window 100, new_val 0, the crop's strided view).
@@ -2314,6 +2342,8 @@ def main() -> int:
     for name, args in speckle.items():
         timed[name] = (lambda a=args: filters.filter_speckles(*a, 1.0),
                        lambda a=args: filters.filter_speckles_plain(*a, 1.0))
+    timed["wta"] = (lambda: wta.wta_disparity(s_default, *wta_args),
+                    lambda: wta.wta_disparity_plain(s_default, *wta_args))
     ms, plain_ms = {}, {}
     for name, (kern, plain) in timed.items():
         ms[name] = time_ms(kern)
@@ -2341,7 +2371,8 @@ def main() -> int:
                                  k3_out[name].element_size(), len(dxs))
     work["speckle"] = kernel_work("speckle", H, W, D)
     work["speckle_post"] = kernel_work("speckle", H, W - D, D)
-    del k3, k3_out, cc, raw, speckle
+    work["wta"] = kernel_work("wta", H, W, D, acc_bytes=s_default.element_size())
+    del k3, k3_out, cc, raw, speckle, s_default
 
     # ---- 3a. default path through the user's entry point ----
     counts_of = {}
@@ -2350,7 +2381,7 @@ def main() -> int:
     est.configure_sgbm(num_disp=D, focal_length=1000.0, baseline=0.1)
     disp, depth = drive(est, counts_of, "a default",
                         {"cost_volume": (1, 1), "hscan": (1, 2),
-                         "rowsweep": (1, 1), "speckle": (2, 8)})
+                         "rowsweep": (1, 1), "wta": (1, 1), "speckle": (2, 8)})
     check_output(disp, depth, (H, W - D), "default")
     hit = float((np.abs(disp - SHIFT) <= 1.0).mean())
     log(f"[3a] known {SHIFT} px shift recovered on {hit:.4%} of pixels; "
@@ -2423,7 +2454,7 @@ def main() -> int:
     disp, depth = drive(rest, counts_of, "b rectified",
                         {"remap": (1, 1), "cost_volume": (1, 1),
                          "hscan": (1, 2), "rowsweep": (1, 1),
-                         "rowsweep_up": (1, 1)})
+                         "rowsweep_up": (1, 1), "wta": (1, 1)})
     check_output(disp, depth, (H, W - D), "rectified")
     both = seen_by_both(maps_x, maps_y, SHIFT, D)
     hit = float((np.abs(disp - SHIFT) <= 1.0)[both].mean())
@@ -2464,10 +2495,10 @@ def main() -> int:
     for path, kw, expected in (
             ("c hh", dict(sgbm_mode="hh"),
              {"cost_volume": (1, 1), "hscan": (1, 2),
-              "rowsweep_diag": (1, 3), "rowsweep_diag_up": (1, 3)}),
+              "rowsweep_diag": (1, 3), "rowsweep_diag_up": (1, 3), "wta": (1, 1)}),
             ("c census", dict(cost="census"),
              {"cost_volume_census": (1, 1), "hscan": (1, 2),
-              "rowsweep": (1, 1)})):
+              "rowsweep": (1, 1), "wta": (1, 1)})):
         e = StereoDepthEstimator(device="cuda")
         e.left_source, e.right_source = left_rgb, right_rgb
         e.configure_sgbm(num_disp=D, focal_length=1000.0, baseline=0.1,
@@ -2531,6 +2562,8 @@ def main() -> int:
          "depthestimation_tpu/ops/remap.py:50", "b rectified"),
         ("speckle", "depthestimation_torch/csrc/speckle_kernels.cu",
          "none (plain XLA: depthestimation_tpu/ops/filters.py:117)", "a default"),
+        ("wta", "depthestimation_torch/csrc/wta_kernels.cu",
+         "none (plain XLA: depthestimation_tpu/ops/wta.py:86)", "a default"),
     ]
     kernels = []
     for name, source, replaces, path in kernel_rows:

@@ -8,9 +8,9 @@ use, into ``build/`` at the repository root, keyed on a hash of the
 sources and flags, so a fresh checkout builds everything on its first
 kernel call and later processes reuse the library.
 
-Every wrapper (ops/cuda_sgm.py, ops/remap.py, ops/filters.py) takes a
-tensor on the CPU through its plain version and launches its kernel for
-a tensor on the card; it never falls back. Each launch adds one to LAUNCHES[name], and
+Every wrapper (ops/cuda_sgm.py, ops/remap.py, ops/filters.py, ops/wta.py)
+takes a tensor on the CPU through its plain version and launches its
+kernel for a tensor on the card; it never falls back. Each launch adds one to LAUNCHES[name], and
 each wrapper call that launched its kernels adds one to CALLS[name].
 A wrapper called while a CUDA graph is captured (graphs.py) counts as
 well; the capture takes that change back (set_counts) and adds it again
@@ -50,16 +50,17 @@ _SIGNATURES = {
     "sgm_rowsweep_wide": [_P, _P, _I, _P, _I] + [_I] * 7 + [_P],
     "remap_bilinear": [_P] * 4 + [_I] * 3 + [_P],
     "speckle_filter": [_P] * 4 + [_I, _I, _F, _F, _I, _P],
+    "wta_select": [_P, _I, _P] + [_I] * 6 + [_F, _P],
 }
 
 # Launch counts per kernel (K3 by direction set, K2 and K3 above 256
 # disparities as their wide variants, see cuda_sgm.hscan and rowsweep; the
-# speckle filter's four launches a call under one name).
+# speckle filter's four launches a call under one name; the WTA stage's one).
 LAUNCHES = {name: 0 for name in (
     "cost_volume", "cost_volume_census", "hscan", "rowsweep", "rowsweep_up",
     "rowsweep_diag", "rowsweep_diag_up", "hscan_wide", "rowsweep_wide",
     "rowsweep_wide_up", "rowsweep_wide_diag", "rowsweep_wide_diag_up", "remap",
-    "speckle")}
+    "speckle", "wta")}
 # Wrapper calls on the card per kernel, under the same names (a call of
 # hscan makes 2 launches, a three-direction rowsweep pass 3), and the
 # calls of the matcher's float32 route on any device

@@ -10,7 +10,8 @@ Counterpart of depthestimation_tpu/ops/pallas_sgm.py. The three kernels
   K3 rowsweep     row-direction scans (down or up, vertical or diagonal)
                   fused with the running sum -> S
 
-followed by the WTA tail (ops/wta.py, plain torch). All four modes
+followed by the WTA stage (ops/wta.py: one kernel on the card,
+csrc/wta_kernels.cu). All four modes
 compose these as the TPU matcher does (pallas_sgm.py:739-755); shapes
 past the int16 bounds raise NotImplementedError (check_supported), and
 pipeline.raw_disparity sends them down the float32 route instead, as the
@@ -300,7 +301,7 @@ def rowsweep(cost: torch.Tensor, acc: torch.Tensor, cfg, dxs, reverse: bool,
 # ---------------------------------------------------------------------------
 
 
-def _matcher(left, right, cfg, cost_fn, hscan_fn, rowsweep_fn):
+def _matcher(left, right, cfg, cost_fn, hscan_fn, rowsweep_fn, wta_fn):
     check_supported(cfg, tuple(left.shape))
     left = left.to(torch.float32).contiguous()
     right = right.to(torch.float32).contiguous()
@@ -310,18 +311,17 @@ def _matcher(left, right, cfg, cost_fn, hscan_fn, rowsweep_fn):
     for i, (dxs, reverse) in enumerate(sweeps):
         dt = _final_dtype(cfg) if i == len(sweeps) - 1 else _acc_dtype(cfg)
         s = rowsweep_fn(c, s, cfg, dxs, reverse, dt)
-    return wta.wta_disparity(s, cfg.min_disp, cfg.uniqueness_ratio,
-                             cfg.disp12_max_diff)
+    return wta_fn(s, cfg.min_disp, cfg.uniqueness_ratio, cfg.disp12_max_diff)
 
 
 def sgm_disparity(left: torch.Tensor, right: torch.Tensor, cfg) -> torch.Tensor:
-    """Full matcher K1 -> K2 -> K3 -> WTA tail on an (H, W) grayscale pair:
+    """Full matcher K1 -> K2 -> K3 -> WTA on an (H, W) grayscale pair:
     float32 (H, W) disparity on the 1/16 grid, invalid = min_disp - 1."""
-    return _matcher(left, right, cfg, cost_volume, hscan, rowsweep)
+    return _matcher(left, right, cfg, cost_volume, hscan, rowsweep, wta.wta_disparity)
 
 
 def sgm_disparity_plain(left: torch.Tensor, right: torch.Tensor, cfg) -> torch.Tensor:
     """The same matcher composed of the kernels' plain versions, on any
     device (the reference the kernels are held to on the card)."""
     return _matcher(left, right, cfg, cost_volume_plain, hscan_plain,
-                    rowsweep_plain)
+                    rowsweep_plain, wta.wta_disparity_plain)

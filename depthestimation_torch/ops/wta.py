@@ -21,13 +21,25 @@ cv2.StereoSGBM, reference stereo_core.py:63-75):
 
 The volume here is never padded, so the JAX version's num_disp/crop
 arguments (pad-lane and pad-column masks) have no counterpart.
+
+wta_disparity takes a volume on the CPU through wta_disparity_plain and
+launches one kernel for a volume on the card (csrc/wta_kernels.cu: argmin,
+uniqueness, subpixel and the LR check, one block a row), equal to the
+plain version bit for bit; it never falls back. Each call on the card adds
+one to LAUNCHES["wta"] and to CALLS["wta"] (cuda_build). lr_invalidate
+stays plain: parallel/shard.py runs it on a selection gathered across
+ranks.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["wta_disparity", "lr_invalidate"]
+from .cuda_build import (called as _called, check as _check,
+                         launched as _launched, load_library,
+                         on_card as _on_card, stream as _stream)
+
+__all__ = ["wta_disparity", "wta_disparity_plain", "lr_invalidate"]
 
 _BIG = 2**20
 
@@ -85,6 +97,40 @@ def lr_invalidate(d0, min_s, valid, disp12_max_diff, min_disp, num_disp):
 
 
 def wta_disparity(
+    s: torch.Tensor,
+    min_disp: int = 0,
+    uniqueness_ratio: int = 10,
+    disp12_max_diff: int = 1,
+) -> torch.Tensor:
+    """Select disparity from aggregated volume S (H, W, D): float32 (H, W)
+    disparity on the 1/16 grid, invalid = min_disp - 1; wta_disparity_plain's
+    semantics, bit for bit. On the card one launch of the WTA kernel on the
+    int16 or int32 volume (a float volume is rounded to int32 first, as the
+    plain version does)."""
+    if not _on_card(s):
+        return wta_disparity_plain(s, min_disp, uniqueness_ratio, disp12_max_diff)
+    if s.dtype.is_floating_point:
+        s = torch.round(s).to(torch.int32)
+    if s.dtype not in (torch.int16, torch.int32):
+        raise TypeError(f"s has dtype {s.dtype}, expected int16, int32 or floating")
+    if s.ndim != 3:
+        raise ValueError(f"s must be (H, W, D), not {tuple(s.shape)}")
+    s = s.contiguous()
+    _check(s, "s", s.dtype, s.shape, s.device)
+    params = (int(min_disp), int(uniqueness_ratio), int(disp12_max_diff))
+    if not all(-2**31 <= p < 2**31 for p in params):
+        raise ValueError(f"min_disp, uniqueness_ratio and disp12_max_diff {params} "
+                         "must fit in 32 bits")
+    h, w, d = s.shape
+    out = torch.empty((h, w), dtype=torch.float32, device=s.device)
+    _launched("wta", load_library().wta_select(
+        s.data_ptr(), int(s.dtype == torch.int32), out.data_ptr(), h, w, d, *params,
+        float(min_disp - 1), _stream()))
+    _called("wta")
+    return out
+
+
+def wta_disparity_plain(
     s: torch.Tensor,
     min_disp: int = 0,
     uniqueness_ratio: int = 10,

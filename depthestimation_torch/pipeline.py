@@ -12,9 +12,9 @@ downscale_factor, temporal) and the same keys for the matcher alone, the
 tail behind an injected matcher and the fused rectify-and-match step. On
 the card an entry is a CUDA graph of the eager function, captured on its
 first call and replayed on every later one (graphs.py); on the CPU it is
-the eager function itself. The matcher and the rectification remap are
+the eager function itself. The matcher (its WTA stage included) and the rectification remap are
 CUDA kernels on the card and their plain versions on the CPU
-(ops/cuda_sgm.py, ops/remap.py). A config and shape outside the kernels'
+(ops/cuda_sgm.py, ops/wta.py, ops/remap.py). A config and shape outside the kernels'
 int16 bounds or launch shapes takes the float32 route instead, as the JAX
 package takes its XLA route outside Pallas (float32_disparity).
 """
@@ -86,10 +86,11 @@ def check_float32_route(cfg: SGMConfig, shape, device) -> None:
 
 
 def float32_disparity(left, right, cfg: SGMConfig) -> torch.Tensor:
-    """The float32 route: compute_disparity_volume, then the WTA tail (the
+    """The float32 route: compute_disparity_volume, then the WTA stage (the
     JAX package's XLA matcher, depthestimation_tpu/pipeline.py:81-84).
     Counted as a call of "float32_route" in cuda_build.CALLS on every
-    device; it launches no kernel of its own."""
+    device; on the card its only kernel is the WTA stage's
+    (wta.wta_disparity, on the rounded int32 volume)."""
     _called("float32_route")
     s = compute_disparity_volume(left, right, cfg)
     return wta.wta_disparity(s, cfg.min_disp, cfg.uniqueness_ratio, cfg.disp12_max_diff)

@@ -10,9 +10,11 @@ then include that wait; its host column shows the enqueue time.
 
 Stages: K1 cost volume; K2's two launches apart (forward L->R; backward
 R->L fused with the sum), each through cuda_sgm.hscan_launch;
-K3's downward and upward passes (hh4's two); the WTA tail with and
-without the LR check, and the LR check alone; the whole matcher; then the
-postprocess stages on a seeded disparity map with 15 % holes.
+K3's downward and upward passes (hh4's two); the WTA stage (one kernel
+on the card) with and without the LR check, and the plain LR check alone
+(lr_invalidate, which the disparity-sharded matcher runs); the whole
+matcher; then the postprocess stages on a seeded disparity map with 15 %
+holes.
 
     python -m depthestimation_torch.tools.profile_kernels
 

@@ -302,16 +302,17 @@ def test_wide_matcher_matches_cpu(card, kw):
 
 def test_float32_route_on_card(card):
     """Outside the kernels' bounds raw_disparity takes the float32 route on
-    the card too: no matcher kernel launched (the speckle filter's one
-    call only), equal to the CPU; above 1 << 26 cells it raises before
-    anything runs."""
+    the card too: no matcher kernel launched but the WTA stage's (and the
+    speckle filter's one call), equal to the CPU; above 1 << 26 cells it
+    raises before anything runs."""
     left, right = pair(20, 200, 9, seed=6, device=card)
     cfg = SGMConfig(num_disp=64, block_size=15)
     cuda_sgm.reset_launches()
     got = pipeline.raw_disparity(left, right, cfg)
     torch.cuda.synchronize()
     assert cuda_sgm.CALLS["float32_route"] == 1 and cuda_sgm.CALLS["speckle"] == 1
-    assert {k: n for k, n in cuda_sgm.LAUNCHES.items() if n} == {"speckle": 4}
+    assert cuda_sgm.CALLS["wta"] == 1
+    assert {k: n for k, n in cuda_sgm.LAUNCHES.items() if n} == {"wta": 1, "speckle": 4}
     assert torch.equal(got.cpu(), pipeline.raw_disparity(left.cpu(), right.cpu(), cfg))
     big = torch.zeros((1024, 1040), device=card)  # 1024 * 1040 * 64 > 1 << 26
     with pytest.raises(ValueError, match="too large for the float32 matcher"):
